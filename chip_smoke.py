@@ -1,0 +1,340 @@
+"""Smoke run of the PyTorch port on one CUDA card: builds the kernel,
+checks it, drives the OverIVA main path at full width and checks the result.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases, each printing its own lines; any failure raises and exits non-zero:
+
+1. device: a CUDA card is required; prints its name and power limit
+   (``nvidia-smi``) and checks that TF32 is off;
+2. build: compiles ``overiva_tpu_torch/csrc/*.cu`` with nvcc (sm_90a);
+3. kernel: ``wcov_packed`` against its plain PyTorch version on the card, at
+   the main path's shapes and one ragged shape, with times;
+4. trajectory: OverIVA in complex128 on the card against the float64 NumPy
+   oracle at full width (M=8, N=3, nfft 4096, T=128), 10 iterations;
+5. main path: stft_analysis -> overiva (wcov="f32" and "bf16pack", complex64,
+   30 iterations) -> stft_synthesis, with launch counts, bss_eval SDR/SIR
+   gates against the oracle, and times;
+6. requests: three mixtures of different lengths through
+   ``separate(algo="ip")``.
+
+The second-to-last line is a JSON object of the kernels, the last line
+``{"ok": true, "device": {...}}``. The float64 oracle and bss_eval are the
+repository's NumPy-only references (``overiva_tpu.oracle``,
+``overiva_tpu.metrics``); nothing of JAX is imported, which the run checks.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+NFFT, HOP = 4096, 2048
+M, N = 8, 3  # the headline configuration: 8 mics, 3 sources
+KERNEL_TOL = 1e-5  # max|kernel - plain| / max|V|: f32 summation order only
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+# ----------------------------------------------------------------- inputs
+
+def make_sources(rng, n_src, n_samples):
+    """Gated Laplacian sources with distinct on/off patterns and colour."""
+    src = rng.laplace(size=(n_src, n_samples))
+    block = max(n_samples // 32, 1)
+    n_blocks = -(-n_samples // block)
+    kernel = np.hanning(129)
+    kernel /= kernel.sum()
+    for k in range(n_src):
+        gates = np.where(rng.random(n_blocks) < 0.45, 1.0, 0.05)
+        env = np.convolve(np.repeat(gates, block)[:n_samples], kernel, mode="same")
+        src[k] *= env
+        b = np.array([1.0, 0.5 * (-1) ** k, 0.2 * (k + 1) / n_src])
+        src[k] = np.convolve(src[k], b, mode="same")
+    return src / np.std(src, axis=1, keepdims=True)
+
+
+def make_mixture(rng, n_src, n_mics, n_samples, n_taps=8, snr_db=30.0):
+    """Random-FIR convolutive mixture with a dominant direct path and white
+    noise. Returns (mix (n, M), images (n_src, n, M))."""
+    src = make_sources(rng, n_src, n_samples)
+    H = rng.standard_normal((n_mics, n_src, n_taps))
+    H[:, :, 0] += 2.0 * np.sign(H[:, :, 0])
+    images = np.zeros((n_src, n_samples, n_mics))
+    for m in range(n_mics):
+        for k in range(n_src):
+            images[k, :, m] = np.convolve(src[k], H[m, k])[:n_samples]
+    mix = images.sum(axis=0)
+    noise = rng.standard_normal(mix.shape)
+    noise *= np.linalg.norm(mix) / np.linalg.norm(noise) * 10 ** (-snr_db / 20)
+    return mix + noise, images
+
+
+def samples_for_frames(n_frames):
+    """Signal length whose padded STFT has exactly ``n_frames`` frames."""
+    return (n_frames - 1) * HOP
+
+
+# ----------------------------------------------------------------- timing
+
+def cuda_ms(fn, repeats=20, warmup=3):
+    """Mean device time of ``fn`` in ms, from CUDA events over ``repeats``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(repeats):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / repeats
+
+
+def best_wall_s(fn, repeats=3):
+    """Best synchronised wall time of ``fn`` after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+# ----------------------------------------------------------------- phases
+
+def phase_device():
+    from overiva_tpu_torch import resolve_device
+
+    dev = resolve_device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    log(f"[device] {smi}")
+    log(
+        f"[device] torch {torch.__version__} cuda {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}"
+    )
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("TF32 is on: the f32 path must be full float32")
+    return dev
+
+
+def phase_build():
+    from overiva_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    lib = _build.build_library()
+    _build.library()
+    seconds = time.perf_counter() - t0
+    ptxas = [
+        line.strip() for line in open(f"{lib}.log")
+        if "registers" in line or "spill" in line
+    ]
+    log(f"[build] {lib.name} in {seconds:.2f} s; " + " | ".join(ptxas))
+
+
+def phase_kernel(dev, seed):
+    from overiva_tpu_torch.ops.wcov_packed import (
+        pack_planes, wcov_packed, wcov_packed_reference,
+    )
+
+    rng = np.random.default_rng(seed)
+    result = {}
+    for K, F, m, T, timed in [
+        (N, 2049, M, 128, True), (N, 2049, M, 512, True), (2, 129, 5, 77, False)
+    ]:
+        X = rng.standard_normal((T, F, m)) + 1j * rng.standard_normal((T, F, m))
+        X = torch.from_numpy(X.astype(np.complex64)).to(dev)
+        phi = torch.from_numpy((rng.random((T, K)) + 0.1).astype(np.float32)).to(dev)
+        xpack = pack_planes(X)
+        V = wcov_packed(xpack, phi, T)
+        vr, vi = wcov_packed_reference(*xpack, phi)
+        V_plain = torch.complex(vr, vi) / T
+        torch.cuda.synchronize()
+        err = (V - V_plain).abs().max().item()
+        scale = V_plain.abs().max().item()
+        line = (
+            f"[kernel] K={K} F={F} M={m} T={T}: max|dV| {err:.3e} = "
+            f"{err / scale:.2e} max|V| (tol {KERNEL_TOL:g})"
+        )
+        if not err <= KERNEL_TOL * scale:
+            raise AssertionError(line)
+        if timed:
+            ms = cuda_ms(lambda: wcov_packed(xpack, phi, T))
+            plain_ms = cuda_ms(lambda: torch.complex(*wcov_packed_reference(*xpack, phi)) / T)
+            line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (20 runs)"
+            if (K, F, m, T) == (N, 2049, M, 128):
+                result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        log(line)
+    return result
+
+
+def rel_err(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def phase_trajectory(dev, X):
+    import overiva_tpu.oracle as oracle
+    from overiva_tpu_torch import api
+
+    t0 = time.perf_counter()
+    Y = api.overiva(
+        torch.from_numpy(X).to(dev), n_src=N, n_iter=10,
+        dtype=torch.complex128, device=dev,
+    ).cpu().numpy()
+    t_port = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Yo = oracle.overiva(X, n_src=N, n_iter=10)
+    t_oracle = time.perf_counter() - t0
+    err = rel_err(Y, Yo)
+    line = (
+        f"[trajectory] c128 port vs f64 oracle, 10 it, X {X.shape}: "
+        f"|dY|/|Y| {err:.3e} (tol 1e-6), max|dY| {np.abs(Y - Yo).max():.3e}; "
+        f"port {t_port:.2f} s, oracle {t_oracle:.2f} s"
+    )
+    if not err < 1e-6:
+        raise AssertionError(line)
+    log(line)
+
+
+def score(y, images, n):
+    from overiva_tpu.metrics import bss_eval_sources
+
+    sdr, sir, _, _ = bss_eval_sources(images[:, :, 0], np.asarray(y)[:n].T)
+    return sdr, sir
+
+
+def phase_main_path(dev, mix, images, X64):
+    import overiva_tpu.oracle as oracle
+    from overiva_tpu_torch import api
+    from overiva_tpu_torch.ops.wcov_packed import wcov_packed
+
+    n = mix.shape[0]
+    start = NFFT - HOP
+    x = torch.from_numpy(oracle.stft_pad(mix, NFFT, HOP)).to(dev)
+
+    # --- the main path, once, with the kernel's launch count
+    wcov_packed.launches = 0
+    X = api.stft_analysis(x, NFFT, device=dev)
+    Y32 = api.overiva(X, n_src=N, n_iter=30, device=dev)
+    torch.cuda.synchronize()
+    f32_launches = wcov_packed.launches
+    Ypk = api.overiva(X, n_src=N, n_iter=30, wcov="bf16pack", device=dev)
+    y32 = api.stft_synthesis(Y32, NFFT, device=dev)[start : start + n]
+    ypk = api.stft_synthesis(Ypk, NFFT, device=dev)[start : start + n]
+    torch.cuda.synchronize()
+    launches = wcov_packed.launches
+    log(
+        f"[main] launches of wcov_packed: f32 run {f32_launches} (want 0), "
+        f"f32 + bf16pack runs {launches} (want 30)"
+    )
+    if f32_launches != 0 or launches != 30:
+        raise AssertionError("the main path did not go through wcov_packed as expected")
+    for name, t in [("X", X), ("Y f32", Y32), ("Y bf16pack", Ypk),
+                    ("y f32", y32), ("y bf16pack", ypk)]:
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"non-finite {name}")
+    if X.shape != (128, NFFT // 2 + 1, M) or y32.shape != (n, N) or ypk.shape != (n, N):
+        raise AssertionError(f"shapes X {X.shape}, y {y32.shape}, {ypk.shape}")
+
+    # --- quality: port c64 against the f64 oracle, bf16pack against f32
+    Yo = oracle.overiva(X64, n_src=N, n_iter=30)
+    yo = oracle.synthesis(Yo, NFFT, HOP)[start : start + n]
+    sdr_o, sir_o = score(yo, images, n)
+    sdr_32, sir_32 = score(y32.cpu().numpy(), images, n)
+    sdr_pk, sir_pk = score(ypk.cpu().numpy(), images, n)
+    d_sdr = np.abs(sdr_32 - sdr_o).max()
+    d_sir = np.abs(sir_32 - sir_o).max()
+    d_pk = abs(sir_pk.mean() - sir_32.mean())
+    log(
+        f"[main] SDR oracle {np.round(sdr_o, 3)} f32 {np.round(sdr_32, 3)} "
+        f"bf16pack {np.round(sdr_pk, 3)}; SIR oracle {np.round(sir_o, 3)} "
+        f"f32 {np.round(sir_32, 3)} bf16pack {np.round(sir_pk, 3)}"
+    )
+    log(
+        f"[main] f32 vs oracle: max|dSDR| {d_sdr:.4f} dB, max|dSIR| "
+        f"{d_sir:.4f} dB (tol 0.1); bf16pack vs f32 mean SIR {d_pk:.4f} dB (tol 0.3)"
+    )
+    if not (d_sdr < 0.1 and d_sir < 0.1 and d_pk < 0.3):
+        raise AssertionError("separation quality gate failed")
+
+    # --- speed: 30-iteration overiva calls on the device-resident STFT
+    for wcov in ("f32", "bf16pack"):
+        t = best_wall_s(lambda: api.overiva(X, n_src=N, n_iter=30, wcov=wcov, device=dev))
+        log(
+            f"[main] overiva wcov={wcov} 30 it (T=128, F=2049, M=8, N=3, c64): "
+            f"{t * 1e3:.2f} ms best of 3 = {30 / t:.1f} it/s"
+        )
+    return launches
+
+
+def phase_requests(dev, seed):
+    from overiva_tpu_torch import api
+
+    rng = np.random.default_rng(seed + 1)
+    clips = [make_mixture(rng, N, M, samples_for_frames(f))[0] for f in (64, 128, 256)]
+    api.separate(clips[0], n_src=N, n_iter=30, device=dev)  # warm-up
+    for clip in clips:
+        t0 = time.perf_counter()
+        y = api.separate(clip, n_src=N, n_iter=30, device=dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        if y.shape != (clip.shape[0], N) or not np.isfinite(y).all():
+            raise AssertionError(f"bad separate output {y.shape}")
+        log(
+            f"[requests] separate(algo='ip', 30 it) {clip.shape[0]} samples x "
+            f"{M} mics ({clip.shape[0] // HOP + 1} frames): {ms:.1f} ms, "
+            "numpy in and out"
+        )
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--seed", type=int, default=0)
+    seed = parser.parse_args().seed
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    import overiva_tpu.oracle as oracle
+
+    dev = phase_device()
+    phase_build()
+    kernel = phase_kernel(dev, seed)
+
+    rng = np.random.default_rng(seed)
+    mix, images = make_mixture(rng, N, M, samples_for_frames(128))
+    X64 = oracle.analysis(oracle.stft_pad(mix, NFFT, HOP), NFFT, HOP)
+    phase_trajectory(dev, X64)
+    launches = phase_main_path(dev, mix, images, X64)
+    phase_requests(dev, seed)
+
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    print(json.dumps({"kernels": [{
+        "name": "wcov_packed",
+        "route": "cuda",
+        "source": "overiva_tpu_torch/csrc/wcov_packed.cu",
+        "replaces": "overiva_tpu/ops/pallas_wcov.py:103",
+        "launches": launches,
+        **kernel,
+    }]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+
+
+if __name__ == "__main__":
+    main()

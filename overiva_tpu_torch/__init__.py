@@ -1,0 +1,61 @@
+"""overiva_tpu_torch — the OverIVA/AuxIVA main path in PyTorch, for CUDA.
+
+A port of ``overiva_tpu`` (the JAX package, which stays the reference)
+to PyTorch on an NVIDIA H100. The public API mirrors ``overiva_tpu.api``:
+
+    stft_analysis(x, nfft) -> X            (n_frames, n_freq, n_chan)
+    overiva(X, n_src, n_iter, proj_back, W0, model, init_eig,
+            return_filters, callback, ...) -> Y
+    auxiva(...), projection_back(Y, ref), stft_synthesis(Y, nfft),
+    separate(mix, n_src, algo="ip")
+
+Inputs may be NumPy arrays or tensors. NumPy in gives NumPy out; a tensor
+in gives a tensor out, on the device the work ran on. Every public
+function takes ``device=``; see :func:`resolve_device`. The package
+imports ``torch`` and never ``jax``; it reuses the NumPy-only windows of
+``overiva_tpu.oracle.stft``.
+
+The weighted covariance of ``wcov="bf16pack"`` runs a CUDA C++ kernel for
+``sm_90a`` (``csrc/wcov_packed.cu``), built with ``nvcc`` at first use.
+"""
+
+__all__ = ["resolve_device"]
+
+_API = {
+    "auxiva": "api",
+    "overiva": "api",
+    "projection_back": "api",
+    "separate": "api",
+    "stft_analysis": "api",
+    "stft_synthesis": "api",
+}
+__all__ += sorted(_API)
+
+
+def __getattr__(name):
+    # lazy: `import overiva_tpu_torch` stays light until the API is used
+    if name in _API:
+        module = __import__(f"overiva_tpu_torch.{_API[name]}", fromlist=[name])
+        return getattr(module, name)
+    raise AttributeError(f"module 'overiva_tpu_torch' has no attribute {name!r}")
+
+
+def resolve_device(device=None, like=None):
+    """The device a call runs on: ``device`` if given, else the device of
+    the tensor ``like``, else CUDA when present, else the CPU.
+
+    On CUDA it also turns TF32 off for matrix products and cuDNN, so that
+    float32 work is full float32 (the JAX package's ``Precision.HIGHEST``).
+    """
+    import torch
+
+    if device is not None:
+        dev = torch.device(device)
+    elif isinstance(like, torch.Tensor):
+        dev = like.device
+    else:
+        dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev

@@ -1,0 +1,105 @@
+"""Build and load the package's CUDA kernels.
+
+The sources under ``csrc/`` are compiled by ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface, at first
+use, into ``build/overiva_tpu_torch/`` at the repository root. The
+library's file name carries a hash of the sources and flags, so an edited
+source is never served by a stale build. It is loaded with ctypes; each
+entry point's ``argtypes`` are declared here.
+
+There is no fallback: a host without ``nvcc`` gets a RuntimeError that
+says so, and a failed compile raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+__all__ = ["BUILD_DIR", "CSRC", "build_library", "library"]
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "overiva_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+# where the CUDA toolkit is looked for after $CUDA_HOME and $PATH
+CUDA_ROOTS = ("/usr/local/cuda",)
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: $CUDA_HOME/bin, then $PATH, then CUDA_ROOTS."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates += [Path(root) / "bin" / "nvcc" for root in CUDA_ROOTS]
+    for c in candidates:
+        if c.is_file() and os.access(c, os.X_OK):
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found ($CUDA_HOME/bin, $PATH, "
+        f"{', '.join(CUDA_ROOTS)}): the CUDA kernels of overiva_tpu_torch "
+        "are built from source at first use and need the CUDA toolkit; "
+        "CPU tensors take the plain PyTorch path and need no build"
+    )
+
+
+def build_library() -> Path:
+    """Compile ``csrc/*.cu`` if this exact build is not there yet.
+
+    Returns the library's path. The compiler's output (``-Xptxas -v``:
+    registers, shared memory and spills per kernel) is kept beside it as
+    ``<library>.log``.
+    """
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    lib = BUILD_DIR / f"libovt_kernels-{digest.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources)],
+            capture_output=True, text=True, check=False,
+        )
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}) building "
+                f"{[s.name for s in sources]}:\n{log}"
+            )
+        Path(f"{lib}.log").write_text(log)
+        os.replace(tmp, lib)  # atomic: a reader never sees a partial file
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The built kernel library, loaded once per process."""
+    lib = ctypes.CDLL(str(build_library()))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.wcov_packed_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.wcov_packed_launch.restype = ci
+    lib.wcov_packed_error_string.argtypes = [ci]
+    lib.wcov_packed_error_string.restype = ctypes.c_char_p
+    return lib

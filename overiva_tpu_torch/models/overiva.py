@@ -1,0 +1,145 @@
+"""OverIVA / AuxIVA iterative projection on tensors.
+
+Counterpart of ``overiva_tpu/models/overiva.py``. The demixing matrix per
+bin is W_hat = [[W1], [J, -I]] with N target rows W1 and the orthogonal
+constraint (OC) background block; each epoch updates the N target rows in
+order by iterative projection (IP) and re-imposes the OC after each one.
+
+Runs eagerly: a Python loop over epochs and sources, every per-bin step
+batched over the F bins. The update keeps the JAX epoch's guards:
+``clamp_pow2`` on the solve outputs, the ``quad_form`` keep-previous-row
+mask, and the dead-bin zeroing inside ``gauss_solve``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.covariance import covariance, weighted_covariance_all
+from ..ops.linalg import (
+    align_eigvec_phase,
+    clamp_pow2,
+    eigh,
+    gauss_solve,
+    mat_h,
+    quad_form,
+)
+from ..ops.wcov_packed import pack_planes, wcov_packed
+from .source_models import activations_from_power, power
+
+__all__ = ["demix", "init_w_hat", "overiva_iterations", "overiva_run", "prepare"]
+
+
+def demix(X, W1):
+    """Y[t,f,n] = sum_m W1[f,n,m] X[t,f,m]."""
+    return torch.einsum("fnm,tfm->tfn", W1, X)
+
+
+def _update_J(W_hat, Cx, n_src: int):
+    """Re-impose the OC: J = solve(tmp[:, :, :N], tmp[:, :, N:])^H with
+    tmp = W1 @ Cx. Returns a new W_hat."""
+    N = n_src
+    tmp = W_hat[:, :N, :] @ Cx  # (F, N, M)
+    # clamp: a singular OC system gives a huge J -> f32 overflow later
+    J_H = clamp_pow2(gauss_solve(tmp[:, :, :N], tmp[:, :, N:]))
+    W_hat = W_hat.clone()
+    W_hat[:, N:, :N] = mat_h(J_H)
+    return W_hat
+
+
+def init_w_hat(X, n_src: int, init_eig: bool, Cx=None, W0=None, dtype=None):
+    """Initial W_hat (F, M, M): identity target rows (or W0's rows, or the
+    conjugated top-N eigenvectors of Cx with ``init_eig``), the [J, -I]
+    background block, and the OC imposed once."""
+    T, F, M = X.shape
+    N = n_src
+    dtype = dtype or X.dtype
+    W_hat = torch.eye(M, dtype=dtype, device=X.device).repeat(F, 1, 1)
+    if N < M:
+        W_hat[:, N:, N:] = -torch.eye(M - N, dtype=dtype, device=X.device)
+    if W0 is not None:
+        W_hat[:, :N, :] = W0[:, :N, :] if W0.shape[1] == M else W0
+    elif init_eig:
+        if Cx is None:
+            Cx = covariance(X)
+        _, vecs = eigh(Cx)  # ascending
+        top = align_eigvec_phase(vecs.flip(-1)[:, :, :N])  # (F, M, N)
+        W_hat[:, :N, :] = mat_h(top)
+    if N < M:
+        if Cx is None:
+            Cx = covariance(X)
+        W_hat = _update_J(W_hat, Cx, N)
+    return W_hat
+
+
+def _epoch(X, W_hat, Cx, n_src: int, model: str, chunk_frames=None,
+           wcov: str = "f32", xpack=None):
+    """One epoch: activations from the current outputs, then the N IP row
+    updates in order. ``xpack``: the bf16 planes of X for ``bf16pack``,
+    packed once per run by the caller. Returns the new W_hat."""
+    T, F, M = X.shape
+    N = n_src
+    _, phi = activations_from_power(power(demix(X, W_hat[:, :N, :])), F, model)
+    W = W_hat.clone()
+    # tmp = W1 @ Cx for the OC update, kept up to date row by row: each IP
+    # step changes exactly one row of W1
+    tmp = W[:, :N, :] @ Cx if N < M else None
+    # all N weighted covariances up front: they depend only on the
+    # epoch-start phi, so one pass over X serves every source
+    if xpack is not None:
+        Vs = wcov_packed(xpack, phi, T).to(X.dtype)
+    else:
+        Vs = weighted_covariance_all(X, phi, wcov, chunk=chunk_frames)
+    for k in range(N):  # IP updates are order-dependent
+        V = Vs[k]
+        e_k = torch.zeros((F, M, 1), dtype=X.dtype, device=X.device)
+        e_k[:, k] = 1.0
+        w = gauss_solve(W @ V, e_k)[:, :, 0]  # (F, M)
+        # knife-edge bins give a huge w whose quadratic form would overflow
+        # f32; exact power-of-2 rescale (the normalization cancels it)
+        w = clamp_pow2(w)
+        # where the form has no significant bits, keep the previous row:
+        # normalizing by rounding noise blows the row up, and the blow-up
+        # spreads to every bin through the joint activations
+        denom, good = quad_form(w, V)
+        w = w / torch.sqrt(torch.where(good, denom, torch.ones_like(denom)))[:, None]
+        w = torch.where(good[:, None], w, W[:, k].conj())
+        W[:, k] = w.conj()
+        if N < M:
+            tmp[:, k] = (w.conj()[:, None, :] @ Cx)[:, 0]
+            # clamp: a singular OC system gives a huge J (f32 overflow
+            # next epoch); finite garbage instead, healthy bins unchanged
+            J_H = clamp_pow2(gauss_solve(tmp[:, :, :N], tmp[:, :, N:]))
+            W[:, N:, :N] = mat_h(J_H)
+    return W
+
+
+def overiva_iterations(X, W_hat, Cx, n_src: int, n_iter: int, model: str,
+                       chunk_frames=None, wcov: str = "f32"):
+    """Run ``n_iter`` epochs. X: (T,F,M); W_hat, Cx: (F,M,M).
+
+    ``wcov="bf16pack"`` packs the bf16 planes of X once here (X is the
+    same every epoch) and each epoch's weighted covariances run the
+    packed kernel on them."""
+    xpack = pack_planes(X) if wcov == "bf16pack" else None
+    for _ in range(n_iter):
+        W_hat = _epoch(X, W_hat, Cx, n_src, model, chunk_frames, wcov, xpack)
+    return W_hat
+
+
+def prepare(X, n_src: int, init_eig: bool, W0=None):
+    """(W_hat, Cx) to start a run from. Cx is zeros where nothing reads it
+    (AuxIVA without eig init)."""
+    T, F, M = X.shape
+    if n_src < M or init_eig:
+        Cx = covariance(X)
+    else:
+        Cx = torch.zeros((F, M, M), dtype=X.dtype, device=X.device)
+    return init_w_hat(X, n_src, init_eig, Cx=Cx, W0=W0), Cx
+
+
+def overiva_run(X, n_src: int, n_iter: int, model: str, init_eig=False, W0=None):
+    """Init + iterate + demix. Returns (Y, W_hat)."""
+    W_hat, Cx = prepare(X, n_src, init_eig, W0)
+    W_hat = overiva_iterations(X, W_hat, Cx, n_src, n_iter, model)
+    return demix(X, W_hat[:, :n_src, :]), W_hat

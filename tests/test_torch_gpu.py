@@ -1,0 +1,83 @@
+"""PyTorch port on a CUDA card: the hand-written kernel against its plain
+version, and the main path on the card against the same path on the CPU.
+
+Every test here needs a card and skips without one. This file imports no
+JAX, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from overiva_tpu_torch import api
+from overiva_tpu_torch.ops import wcov_packed as twp
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(seed, T, F, M, K):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((T, F, M)) + 1j * rng.standard_normal((T, F, M))
+    phi = rng.random((T, K)) + 0.1
+    return torch.from_numpy(X.astype(np.complex64)), torch.from_numpy(phi.astype(np.float32))
+
+
+@pytest.mark.parametrize(
+    "K,F,M,T", [(3, 2049, 8, 128), (3, 2049, 8, 512), (2, 129, 5, 77), (1, 3, 32, 200)]
+)
+def test_kernel_matches_plain(cuda, K, F, M, T):
+    """Same bf16 operands, f32 accumulation in another order: 1e-5 max|V|."""
+    X, phi = _inputs(F + T, T, F, M, K)
+    xpack = twp.pack_planes(X.to(cuda))
+    phic = phi.to(cuda)
+    before = twp.wcov_packed.launches
+    V = twp.wcov_packed(xpack, phic, T)
+    torch.cuda.synchronize()
+    assert twp.wcov_packed.launches == before + 1
+    V_plain = torch.complex(*twp.wcov_packed_reference(*xpack, phic)) / T
+    scale = V_plain.abs().max().item()
+    assert (V - V_plain).abs().max().item() <= 1e-5 * scale
+    # the plain version on the card equals the one on the CPU up to order
+    V_cpu = twp.wcov_packed(twp.pack_planes(X), phi, T)
+    assert (V.cpu() - V_cpu).abs().max().item() <= 1e-5 * scale
+
+
+def test_kernel_refuses_bad_inputs(cuda):
+    X, phi = _inputs(1, 16, 4, 4, 2)
+    xr, xi = twp.pack_planes(X.to(cuda))
+    phic = phi.to(cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        twp.wcov_packed((xr.float(), xi.float()), phic, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        twp.wcov_packed((xr.transpose(0, 1), xi.transpose(0, 1)), phic, 16)
+    with pytest.raises(ValueError, match="one device"):
+        twp.wcov_packed((xr, xi), phi, 16)
+    big = torch.zeros((2, 33, 4), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="threads"):
+        twp.wcov_packed((big, big), torch.ones((4, 1), device=cuda), 4)
+
+
+def test_main_path_on_card_matches_cpu(cuda):
+    """complex128 f32-tier run: the card and the CPU agree to rounding;
+    bf16pack launches the kernel once per epoch and lands near the f32 run."""
+    rng = np.random.default_rng(5)
+    T, F, M = 64, 65, 5
+    X = rng.standard_normal((T, F, M)) + 1j * rng.standard_normal((T, F, M))
+    Y_gpu = api.overiva(torch.from_numpy(X).to(cuda), n_src=2, n_iter=8, dtype=np.complex128)
+    Y_cpu = api.overiva(X, n_src=2, n_iter=8, dtype=np.complex128, device="cpu")
+    np.testing.assert_allclose(Y_gpu.cpu().numpy(), Y_cpu, rtol=1e-9, atol=1e-12)
+    before = twp.wcov_packed.launches
+    Y_pk = api.overiva(X, n_src=2, n_iter=8, wcov="bf16pack", device=cuda)
+    assert twp.wcov_packed.launches == before + 8
+    assert isinstance(Y_pk, np.ndarray) and np.isfinite(Y_pk).all()
+    Y32 = api.overiva(X, n_src=2, n_iter=8, device=cuda)
+    assert np.linalg.norm(Y_pk - Y32) / np.linalg.norm(Y32) < 3e-2
