@@ -1,5 +1,5 @@
-"""Smoke run of the PyTorch port on one CUDA card: builds the kernel,
-checks it, drives the OverIVA main path at full width and checks the result.
+"""Smoke run of the PyTorch port on one CUDA card: builds the kernels,
+checks them, drives the OverIVA paths at full width and checks the results.
 
     python3 chip_smoke.py [--seed N]
 
@@ -10,11 +10,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 2. build: compiles ``overiva_tpu_torch/csrc/*.cu`` with nvcc (sm_90a);
 3. kernel: ``wcov_packed`` against its plain PyTorch version on the card, at
    the main path's shapes and one ragged shape, with times;
+3b. fused: ``update_rows`` (the fused per-bin IP update) against its plain
+   version at the headline and ragged shapes and on knife-edge bins, with
+   the kernel, plain and eager-epoch times;
 4. trajectory: OverIVA in complex128 on the card against the float64 NumPy
    oracle at full width (M=8, N=3, nfft 4096, T=128), 10 iterations;
 5. main path: stft_analysis -> overiva (wcov="f32" and "bf16pack", complex64,
    30 iterations) -> stft_synthesis, with launch counts, bss_eval SDR/SIR
    gates against the oracle, and times;
+5b. fused run: 30 epochs of ``_fused_epoch`` (demix -> phi, then the
+   fused kernel) on phase 5's STFT, with the launch count, the same
+   SDR/SIR gate against the oracle, and its time beside phase 5's;
 6. requests: three mixtures of different lengths through
    ``separate(algo="ip")``.
 
@@ -38,6 +44,9 @@ import torch
 NFFT, HOP = 4096, 2048
 M, N = 8, 3  # the headline configuration: 8 mics, 3 sources
 KERNEL_TOL = 1e-5  # max|kernel - plain| / max|V|: f32 summation order only
+# max|kernel - plain| / max|W| of the fused update: f32 sums in another
+# order, amplified by the condition of W V at M = 8
+FUSED_TOL = 1e-4
 
 
 def log(msg):
@@ -182,6 +191,79 @@ def phase_kernel(dev, seed):
     return result
 
 
+def _decisions(W_new, W_old, n):
+    """Per-bin guard decisions read off an update: which target rows were
+    kept (quad_form's mask, or a dead IP solve), and where the OC solve
+    was dead (J = 0)."""
+    keep = (W_new[:, :n] == W_old[:, :n]).all(dim=-1)
+    zero = (W_new[:, n:, :n] == 0).flatten(1).all(dim=1)
+    return keep, zero
+
+
+def phase_fused_kernel(dev, seed):
+    from overiva_tpu_torch.models import overiva as core
+    from overiva_tpu_torch.ops.update_rows import update_rows, update_rows_reference
+
+    rng = np.random.default_rng(seed + 2)
+    result = {}
+    cases = [
+        (M, N, 2049, 128, "timed"), (M, N, 2049, 512, "timed"),
+        (2, 2, 129, 77, ""), (5, 2, 129, 77, ""), (8, 8, 129, 77, ""),
+        (M, N, 129, 77, "knife"),
+    ]
+    for m, n, F, T, kind in cases:
+        X = rng.standard_normal((T, F, m)) + 1j * rng.standard_normal((T, F, m))
+        if kind == "knife":  # 4 silent bins, 4 rank-1 bins
+            X[:, :4] = 0
+            X[:, 4:8] = rng.standard_normal((T, 4, 1)) * rng.standard_normal((1, 4, m))
+        X = torch.from_numpy(X.astype(np.complex64)).to(dev)
+        phi = torch.from_numpy((rng.random((T, n)) + 0.1).astype(np.float32)).to(dev)
+        W, Cx = core.prepare(X, n, False)
+        W, Cx = W.contiguous(), Cx.contiguous()
+        W_k = update_rows(phi, X, Cx, W, n)
+        W_p = update_rows_reference(phi, X, Cx, W, n)
+        torch.cuda.synchronize()
+        err = (W_k - W_p).abs().max().item()
+        scale = W_p.abs().max().item()
+        line = (
+            f"[fused] update_rows M={m} N={n} F={F} T={T}{' knife-edge' if kind == 'knife' else ''}: "
+            f"max|dW| {err:.3e} = {err / scale:.2e} max|W|"
+        )
+        if kind == "knife":
+            keep_k, zero_k = _decisions(W_k, W, n)
+            keep_p, zero_p = _decisions(W_p, W, n)
+            same = bool(torch.equal(keep_k, keep_p) and torch.equal(zero_k, zero_p))
+            finite = bool(torch.isfinite(W_k).all())
+            line += (
+                f"; kept rows {int(keep_k.sum())} (plain {int(keep_p.sum())}), "
+                f"zero OC bins {int(zero_k.sum())} (plain {int(zero_p.sum())}), "
+                f"same decisions {same}, finite {finite}"
+            )
+            if not (same and finite):
+                raise AssertionError(line)
+        elif not err <= FUSED_TOL * scale:
+            raise AssertionError(line + f" (tol {FUSED_TOL:g})")
+        else:
+            line += f" (tol {FUSED_TOL:g})"
+        if kind == "timed":
+            ms = cuda_ms(lambda: update_rows(phi, X, Cx, W, n))
+            plain_ms = cuda_ms(lambda: update_rows_reference(phi, X, Cx, W, n))
+            line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            if T == 128:
+                eager_ms = cuda_ms(lambda: core._epoch(X, W, Cx, n, "laplace"))
+                fused_ms = cuda_ms(lambda: core._fused_epoch(X, W, Cx, n, "laplace"))
+                line += (
+                    f", eager _epoch {eager_ms:.4f} ms, _fused_epoch {fused_ms:.4f} ms"
+                )
+                result = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "eager_epoch_ms": eager_ms, "fused_epoch_ms": fused_ms,
+                }
+            line += " (20 runs)"
+        log(line)
+    return result
+
+
 def rel_err(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
@@ -220,14 +302,16 @@ def score(y, images, n):
 def phase_main_path(dev, mix, images, X64):
     import overiva_tpu.oracle as oracle
     from overiva_tpu_torch import api
+    from overiva_tpu_torch.ops.update_rows import update_rows
     from overiva_tpu_torch.ops.wcov_packed import wcov_packed
 
     n = mix.shape[0]
     start = NFFT - HOP
     x = torch.from_numpy(oracle.stft_pad(mix, NFFT, HOP)).to(dev)
 
-    # --- the main path, once, with the kernel's launch count
+    # --- the main path, once, with the kernels' launch counts
     wcov_packed.launches = 0
+    update_rows.launches = 0
     X = api.stft_analysis(x, NFFT, device=dev)
     Y32 = api.overiva(X, n_src=N, n_iter=30, device=dev)
     torch.cuda.synchronize()
@@ -239,10 +323,11 @@ def phase_main_path(dev, mix, images, X64):
     launches = wcov_packed.launches
     log(
         f"[main] launches of wcov_packed: f32 run {f32_launches} (want 0), "
-        f"f32 + bf16pack runs {launches} (want 30)"
+        f"f32 + bf16pack runs {launches} (want 30); of update_rows "
+        f"{update_rows.launches} (want 0: api.overiva runs the eager epoch)"
     )
-    if f32_launches != 0 or launches != 30:
-        raise AssertionError("the main path did not go through wcov_packed as expected")
+    if f32_launches != 0 or launches != 30 or update_rows.launches != 0:
+        raise AssertionError("the main path did not go through the kernels as expected")
     for name, t in [("X", X), ("Y f32", Y32), ("Y bf16pack", Ypk),
                     ("y f32", y32), ("y bf16pack", ypk)]:
         if not bool(torch.isfinite(t).all()):
@@ -272,12 +357,64 @@ def phase_main_path(dev, mix, images, X64):
         raise AssertionError("separation quality gate failed")
 
     # --- speed: 30-iteration overiva calls on the device-resident STFT
+    eager_s = {}
     for wcov in ("f32", "bf16pack"):
         t = best_wall_s(lambda: api.overiva(X, n_src=N, n_iter=30, wcov=wcov, device=dev))
+        eager_s[wcov] = t
         log(
             f"[main] overiva wcov={wcov} 30 it (T=128, F=2049, M=8, N=3, c64): "
             f"{t * 1e3:.2f} ms best of 3 = {30 / t:.1f} it/s"
         )
+    return {"launches": launches, "sdr_o": sdr_o, "sir_o": sir_o, "eager_s": eager_s["f32"]}
+
+
+def phase_fused_run(dev, mix, images, main):
+    """30 epochs through the fused kernel, prepared as api.overiva prepares
+    them, on phase 5's mixture; quality against phase 5's oracle scores."""
+    import overiva_tpu.oracle as oracle
+    from overiva_tpu_torch import api
+    from overiva_tpu_torch.models import overiva as core
+    from overiva_tpu_torch.ops.projection import apply_projection_back
+    from overiva_tpu_torch.ops.update_rows import update_rows
+
+    n = mix.shape[0]
+    start = NFFT - HOP
+    x = torch.from_numpy(oracle.stft_pad(mix, NFFT, HOP)).to(dev)
+    X = api.stft_analysis(x, NFFT, device=dev).contiguous()
+
+    def fused_overiva(n_iter=30):
+        W_hat, Cx = core.prepare(X, N, False)
+        W_hat, Cx = W_hat.contiguous(), Cx.contiguous()
+        for _ in range(n_iter):
+            W_hat = core._fused_epoch(X, W_hat, Cx, N, "laplace")
+        return apply_projection_back(core.demix(X, W_hat[:, :N, :]), X[:, :, 0])
+
+    update_rows.launches = 0
+    Y = fused_overiva()
+    y = api.stft_synthesis(Y, NFFT, device=dev)[start : start + n]
+    torch.cuda.synchronize()
+    launches = update_rows.launches
+    log(f"[fused] launches of update_rows in the 30-iteration run: {launches} (want 30)")
+    if launches != 30:
+        raise AssertionError("the fused path did not go through update_rows as expected")
+    if not (bool(torch.isfinite(Y).all()) and bool(torch.isfinite(y).all())):
+        raise AssertionError("non-finite output of the fused run")
+    if Y.shape != (128, NFFT // 2 + 1, N) or y.shape != (n, N):
+        raise AssertionError(f"shapes Y {Y.shape}, y {y.shape}")
+    sdr, sir = score(y.cpu().numpy(), images, n)
+    d_sdr = np.abs(sdr - main["sdr_o"]).max()
+    d_sir = np.abs(sir - main["sir_o"]).max()
+    log(
+        f"[fused] SDR {np.round(sdr, 3)} SIR {np.round(sir, 3)}; vs oracle: "
+        f"max|dSDR| {d_sdr:.4f} dB, max|dSIR| {d_sir:.4f} dB (tol 0.1)"
+    )
+    if not (d_sdr < 0.1 and d_sir < 0.1):
+        raise AssertionError("fused run: separation quality gate failed")
+    t = best_wall_s(fused_overiva)
+    log(
+        f"[fused] 30 x _fused_epoch (T=128, F=2049, M=8, N=3, c64): {t * 1e3:.2f} ms "
+        f"best of 3 = {30 / t:.1f} it/s; eager overiva f32 {main['eager_s'] * 1e3:.2f} ms"
+    )
     return launches
 
 
@@ -311,12 +448,14 @@ def main():
     dev = phase_device()
     phase_build()
     kernel = phase_kernel(dev, seed)
+    fused = phase_fused_kernel(dev, seed)
 
     rng = np.random.default_rng(seed)
     mix, images = make_mixture(rng, N, M, samples_for_frames(128))
     X64 = oracle.analysis(oracle.stft_pad(mix, NFFT, HOP), NFFT, HOP)
     phase_trajectory(dev, X64)
-    launches = phase_main_path(dev, mix, images, X64)
+    main_path = phase_main_path(dev, mix, images, X64)
+    fused_launches = phase_fused_run(dev, mix, images, main_path)
     phase_requests(dev, seed)
 
     if "jax" in sys.modules:
@@ -326,8 +465,15 @@ def main():
         "route": "cuda",
         "source": "overiva_tpu_torch/csrc/wcov_packed.cu",
         "replaces": "overiva_tpu/ops/pallas_wcov.py:103",
-        "launches": launches,
+        "launches": main_path["launches"],
         **kernel,
+    }, {
+        "name": "update_rows",
+        "route": "cuda",
+        "source": "overiva_tpu_torch/csrc/update_rows.cu",
+        "replaces": "overiva_tpu/ops/pallas_epoch.py:248",
+        "launches": fused_launches,
+        **fused,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

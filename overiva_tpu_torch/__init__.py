@@ -7,7 +7,8 @@ to PyTorch on an NVIDIA H100. The public API mirrors ``overiva_tpu.api``:
     overiva(X, n_src, n_iter, proj_back, W0, model, init_eig,
             return_filters, callback, ...) -> Y
     auxiva(...), projection_back(Y, ref), stft_synthesis(Y, nfft),
-    separate(mix, n_src, algo="ip")
+    separate(mix, n_src, algo="ip"), pca, auxiva_pca(inner="ip"),
+    stft_analysis_batch, overiva_batch, stft_synthesis_batch
 
 Inputs may be NumPy arrays or tensors. NumPy in gives NumPy out; a tensor
 in gives a tensor out, on the device the work ran on. Every public
@@ -15,19 +16,21 @@ function takes ``device=``; see :func:`resolve_device`. The package
 imports ``torch`` and never ``jax``; it reuses the NumPy-only windows of
 ``overiva_tpu.oracle.stft``.
 
-The weighted covariance of ``wcov="bf16pack"`` runs a CUDA C++ kernel for
-``sm_90a`` (``csrc/wcov_packed.cu``), built with ``nvcc`` at first use.
+Two CUDA C++ kernels for ``sm_90a``, built with ``nvcc`` at first use: the
+weighted covariance of ``wcov="bf16pack"`` (``csrc/wcov_packed.cu``) and
+the fused per-bin IP update (``csrc/update_rows.cu``, ``ops/update_rows.py``,
+run by ``models/overiva.py::_fused_epoch``).
 """
 
 __all__ = ["resolve_device"]
 
 _API = {
-    "auxiva": "api",
-    "overiva": "api",
-    "projection_back": "api",
-    "separate": "api",
-    "stft_analysis": "api",
-    "stft_synthesis": "api",
+    name: "api"
+    for name in (
+        "auxiva", "auxiva_pca", "overiva", "overiva_batch", "pca",
+        "projection_back", "separate", "stft_analysis", "stft_analysis_batch",
+        "stft_synthesis", "stft_synthesis_batch",
+    )
 }
 __all__ += sorted(_API)
 

@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
 The sources under ``csrc/`` are compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, at first
-use, into ``build/overiva_tpu_torch/`` at the repository root. The
-library's file name carries a hash of the sources and flags, so an edited
-source is never served by a stale build. It is loaded with ctypes; each
-entry point's ``argtypes`` are declared here.
+(``sm_90a``), one ``nvcc`` per source, all started together, and linked
+into one shared library with a plain C interface, at first use, into
+``build/overiva_tpu_torch/`` at the repository root. The library's file
+name carries a hash of the sources and flags, so an edited source is never
+served by a stale build. It is loaded with ctypes; each entry point's
+``argtypes`` are declared here.
 
 There is no fallback: a host without ``nvcc`` gets a RuntimeError that
 says so, and a failed compile raises with the compiler's output.
@@ -29,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "overiva_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # where the CUDA toolkit is looked for after $CUDA_HOME and $PATH
 CUDA_ROOTS = ("/usr/local/cuda",)
@@ -58,9 +59,10 @@ def find_nvcc() -> str:
 def build_library() -> Path:
     """Compile ``csrc/*.cu`` if this exact build is not there yet.
 
-    Returns the library's path. The compiler's output (``-Xptxas -v``:
-    registers, shared memory and spills per kernel) is kept beside it as
-    ``<library>.log``.
+    Returns the library's path. Each source compiles in its own ``nvcc``
+    process, all at once; one more ``nvcc`` links the objects. The
+    compilers' output (``-Xptxas -v``: registers, shared memory and spills
+    per kernel) is kept beside the library as ``<library>.log``.
     """
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -72,24 +74,33 @@ def build_library() -> Path:
         return lib
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources)],
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [Path(tmp) / f"{src.stem}.o" for src in sources]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(sources, objects)
+        ]
+        logs = [proc.communicate()[0] for proc in procs]
+        for src, proc, log in zip(sources, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed (exit {proc.returncode}) compiling {src.name}:\n{log}"
+                )
+        so = Path(tmp) / lib.name
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(so), *map(str, objects)],
             capture_output=True, text=True, check=False,
         )
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
+        if link.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}) building "
-                f"{[s.name for s in sources]}:\n{log}"
+                f"nvcc failed (exit {link.returncode}) linking "
+                f"{[o.name for o in objects]}:\n{link.stdout}{link.stderr}"
             )
-        Path(f"{lib}.log").write_text(log)
-        os.replace(tmp, lib)  # atomic: a reader never sees a partial file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        Path(f"{lib}.log").write_text("".join(logs))
+        os.replace(so, lib)  # atomic: a reader never sees a partial file
     return lib
 
 
@@ -102,4 +113,8 @@ def library() -> ctypes.CDLL:
     lib.wcov_packed_launch.restype = ci
     lib.wcov_packed_error_string.argtypes = [ci]
     lib.wcov_packed_error_string.restype = ctypes.c_char_p
+    lib.update_rows_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.update_rows_launch.restype = ci
+    lib.update_rows_error_string.argtypes = [ci]
+    lib.update_rows_error_string.restype = ctypes.c_char_p
     return lib

@@ -6,7 +6,10 @@ signatures and validation plus ``device=``:
     stft_analysis(x, nfft) -> X            (n_frames, n_freq, n_chan)
     overiva(X, n_src, ...) -> Y [, W_hat]  (n_frames, n_freq, n_src)
     auxiva(X, ...), projection_back(Y, ref), stft_synthesis(Y, nfft)
+    pca(X, n_src), auxiva_pca(X, n_src, inner="ip")
     separate(mix, n_src, algo="ip")        samples in, samples out
+    stft_analysis_batch, overiva_batch, stft_synthesis_batch
+                                           a leading batch axis, written out
 
 A NumPy input gives a NumPy output; a tensor input gives a tensor on the
 device the work ran on. ``device`` defaults to the input tensor's device,
@@ -19,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from . import resolve_device
+from .models import auxiva_pca as _pca
 from .models import overiva as _core
 from .models.source_models import MODELS
 from .ops import projection as _proj
@@ -28,11 +32,16 @@ from .utils.convert import as_tensor, to_torch_dtype
 
 __all__ = [
     "auxiva",
+    "auxiva_pca",
     "overiva",
+    "overiva_batch",
+    "pca",
     "projection_back",
     "separate",
     "stft_analysis",
+    "stft_analysis_batch",
     "stft_synthesis",
+    "stft_synthesis_batch",
 ]
 
 DEFAULT_DTYPE = torch.complex64
@@ -79,7 +88,8 @@ def overiva(
     (bounded memory, same result). ``wcov``: ``"f32"`` (default, exact),
     ``"bf16"`` (bf16 operands, f32 accumulation) or ``"bf16pack"`` (the
     same numerics through the CUDA kernel on a CUDA device; no chunked
-    form). ``"f32x3"`` is not ported yet. ``acc="f32x2"`` is the
+    form). ``"f32x3"`` (the TPU's 3-pass tier) runs exact f32 here, at
+    least as accurate as on the TPU. ``acc="f32x2"`` is the
     certification tier: on this hardware it runs complex128 on the
     complex64-rounded input and returns complex64; not combinable with
     ``init_eig`` or a non-default ``dtype``/``wcov``.
@@ -183,6 +193,108 @@ def auxiva(
     )
 
 
+def pca(X, n_src, return_basis=False, dtype=None, device=None):
+    """Per-bin principal-subspace reduction. Reference: ``auxiva_pca.pca``.
+
+    X: (n_frames, n_freq, n_chan) -> (n_frames, n_freq, n_src) [, basis
+    (n_freq, n_chan, n_src)]."""
+    numpy_in = not isinstance(X, torch.Tensor)
+    cdtype = to_torch_dtype(dtype or DEFAULT_DTYPE)
+    Xd = as_tensor(X, cdtype, resolve_device(device, X))
+    if return_basis:
+        X_r, E = _pca.pca(Xd, int(n_src), True)
+        return _output(X_r, numpy_in), _output(E, numpy_in)
+    return _output(_pca.pca(Xd, int(n_src)), numpy_in)
+
+
+def auxiva_pca(
+    X,
+    n_src=None,
+    n_iter=20,
+    proj_back=True,
+    model="laplace",
+    return_filters=False,
+    callback=None,
+    callback_every=10,
+    dtype=None,
+    inner="ip",
+    device=None,
+):
+    """PCA to n_src dims then determined AuxIVA; projection back against the
+    original mic 0. Reference: ``auxiva_pca.py``.
+
+    ``inner="ip"`` (iterative projection) is ported; ``"iss"`` and
+    ``"ip2"`` raise NotImplementedError naming the ROADMAP item that ports
+    them. ``return_filters`` gives the reduced (n_freq, n_src, n_src) W."""
+    if inner != "ip":
+        if inner in _UNPORTED_ALGOS:
+            raise NotImplementedError(
+                f"auxiva_pca(inner={inner!r}) is not ported yet (ROADMAP.md "
+                f"Queue 1 item {_UNPORTED_ALGOS[inner]}); use inner='ip'"
+            )
+        raise ValueError(f"unknown inner {inner!r}; use 'ip'")
+    numpy_in = not isinstance(X, torch.Tensor)
+    M = X.shape[2]
+    N = M if n_src is None else int(n_src)
+    if not 1 <= N <= M:
+        raise ValueError("need 1 <= n_src <= n_chan")
+    cdtype = to_torch_dtype(dtype or DEFAULT_DTYPE)
+    Xd = as_tensor(X, cdtype, resolve_device(device, X))
+    X_r = _pca.pca(Xd, N) if N < M else Xd
+    cb = callback
+    if callback is not None and numpy_in:  # NumPy in: the callback sees NumPy
+        def cb(Y):
+            callback(Y.cpu().numpy())
+
+    res = auxiva(
+        X_r, n_src=N, n_iter=n_iter, proj_back=False, model=model,
+        return_filters=return_filters, callback=cb,
+        callback_every=callback_every, dtype=cdtype,
+    )
+    Y, W = res if return_filters else (res, None)
+    if proj_back:
+        Y = _proj.apply_projection_back(Y, Xd[:, :, 0])
+    if return_filters:
+        return _output(Y, numpy_in), _output(W, numpy_in)
+    return _output(Y, numpy_in)
+
+
+def overiva_batch(
+    X,
+    n_src=None,
+    n_iter=20,
+    proj_back=True,
+    model="laplace",
+    init_eig=False,
+    dtype=None,
+    device=None,
+):
+    """Separate a batch of same-shape mixtures at once.
+
+    X: (batch, n_frames, n_freq, n_chan) complex. Returns (batch, n_frames,
+    n_freq, n_src). The batch is written out, not looped over: the per-bin
+    linear algebra runs over batch * n_freq bins in one call, and power and
+    the activations are per mixture (the JAX package's ``vmap``). No
+    callback (use :func:`overiva` per mixture for that).
+    """
+    numpy_in = not isinstance(X, torch.Tensor)
+    if X.ndim != 4:
+        raise ValueError(
+            f"overiva_batch expects (B, T, F, M); got shape {tuple(X.shape)}"
+        )
+    M = X.shape[3]
+    N = M if n_src is None else int(n_src)
+    if not 1 <= N <= M:
+        raise ValueError("need 1 <= n_src <= n_chan")
+    _check_model(model)
+    cdtype = to_torch_dtype(dtype or DEFAULT_DTYPE)
+    Xd = as_tensor(X, cdtype, resolve_device(device, X))
+    Y = _core.overiva_batch_run(
+        Xd, N, int(n_iter), model, init_eig=bool(init_eig), proj_back=bool(proj_back)
+    )
+    return _output(Y, numpy_in)
+
+
 def projection_back(Y, ref, device=None):
     """Minimal-distortion rescale factors z (F, K). The caller applies
     ``Y *= conj(z)[None]``, the reference's convention."""
@@ -203,6 +315,38 @@ def stft_analysis(x, nfft, hop=None, win=None, dtype=None, device=None):
     rdtype = to_torch_dtype(dtype or DEFAULT_DTYPE).to_real()
     xd = as_tensor(x, rdtype, resolve_device(device, x))
     return _output(_stft.analysis(xd, int(nfft), int(hop), win), numpy_in)
+
+
+def stft_analysis_batch(x, nfft, hop=None, dtype=None, device=None):
+    """Batch of time signals (B, n_samples[, M]) -> (B, T, nfft//2+1[, M]),
+    in one transform over the whole batch."""
+    numpy_in = not isinstance(x, torch.Tensor)
+    if x.ndim not in (2, 3):
+        raise ValueError(
+            f"stft_analysis_batch expects (B, n_samples[, M]); got shape {tuple(x.shape)}"
+        )
+    hop = hop or nfft // 2
+    rdtype = to_torch_dtype(dtype or DEFAULT_DTYPE).to_real()
+    xd = as_tensor(x, rdtype, resolve_device(device, x))
+    mono = xd.ndim == 2
+    X = _stft.analysis(xd[..., None] if mono else xd, int(nfft), int(hop))
+    return _output(X[..., 0] if mono else X, numpy_in)
+
+
+def stft_synthesis_batch(X, nfft, hop=None, win_s=None, dtype=None, device=None):
+    """Batch of STFTs (B, T, nfft//2+1, N) -> (B, n_samples, N), in one
+    overlap-add over the whole batch. ``win_s`` as in :func:`stft_synthesis`."""
+    numpy_in = not isinstance(X, torch.Tensor)
+    if X.ndim != 4:
+        raise ValueError(
+            "stft_synthesis_batch expects (B, T, nfft//2+1, N); got shape "
+            f"{tuple(X.shape)} — use stft_synthesis for unbatched input "
+            "or add a leading batch axis"
+        )
+    hop = hop or nfft // 2
+    cdtype = to_torch_dtype(dtype or DEFAULT_DTYPE)
+    Xd = as_tensor(X, cdtype, resolve_device(device, X))
+    return _output(_stft.synthesis(Xd, int(nfft), int(hop), win_s), numpy_in)
 
 
 def stft_synthesis(X, nfft, hop=None, win_s=None, dtype=None, device=None):

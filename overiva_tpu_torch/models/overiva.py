@@ -16,18 +16,16 @@ from __future__ import annotations
 import torch
 
 from ..ops.covariance import covariance, weighted_covariance_all
-from ..ops.linalg import (
-    align_eigvec_phase,
-    clamp_pow2,
-    eigh,
-    gauss_solve,
-    mat_h,
-    quad_form,
-)
+from ..ops.linalg import align_eigvec_phase, clamp_pow2, eigh, gauss_solve, mat_h
+from ..ops.projection import apply_projection_back
+from ..ops.update_rows import ip_rows, update_rows
 from ..ops.wcov_packed import pack_planes, wcov_packed
 from .source_models import activations_from_power, power
 
-__all__ = ["demix", "init_w_hat", "overiva_iterations", "overiva_run", "prepare"]
+__all__ = [
+    "demix", "init_w_hat", "overiva_batch_run", "overiva_iterations",
+    "overiva_run", "prepare",
+]
 
 
 def demix(X, W1):
@@ -77,41 +75,26 @@ def _epoch(X, W_hat, Cx, n_src: int, model: str, chunk_frames=None,
     """One epoch: activations from the current outputs, then the N IP row
     updates in order. ``xpack``: the bf16 planes of X for ``bf16pack``,
     packed once per run by the caller. Returns the new W_hat."""
-    T, F, M = X.shape
+    T, F, _ = X.shape
     N = n_src
     _, phi = activations_from_power(power(demix(X, W_hat[:, :N, :])), F, model)
-    W = W_hat.clone()
-    # tmp = W1 @ Cx for the OC update, kept up to date row by row: each IP
-    # step changes exactly one row of W1
-    tmp = W[:, :N, :] @ Cx if N < M else None
     # all N weighted covariances up front: they depend only on the
     # epoch-start phi, so one pass over X serves every source
     if xpack is not None:
         Vs = wcov_packed(xpack, phi, T).to(X.dtype)
     else:
         Vs = weighted_covariance_all(X, phi, wcov, chunk=chunk_frames)
-    for k in range(N):  # IP updates are order-dependent
-        V = Vs[k]
-        e_k = torch.zeros((F, M, 1), dtype=X.dtype, device=X.device)
-        e_k[:, k] = 1.0
-        w = gauss_solve(W @ V, e_k)[:, :, 0]  # (F, M)
-        # knife-edge bins give a huge w whose quadratic form would overflow
-        # f32; exact power-of-2 rescale (the normalization cancels it)
-        w = clamp_pow2(w)
-        # where the form has no significant bits, keep the previous row:
-        # normalizing by rounding noise blows the row up, and the blow-up
-        # spreads to every bin through the joint activations
-        denom, good = quad_form(w, V)
-        w = w / torch.sqrt(torch.where(good, denom, torch.ones_like(denom)))[:, None]
-        w = torch.where(good[:, None], w, W[:, k].conj())
-        W[:, k] = w.conj()
-        if N < M:
-            tmp[:, k] = (w.conj()[:, None, :] @ Cx)[:, 0]
-            # clamp: a singular OC system gives a huge J (f32 overflow
-            # next epoch); finite garbage instead, healthy bins unchanged
-            J_H = clamp_pow2(gauss_solve(tmp[:, :, :N], tmp[:, :, N:]))
-            W[:, N:, :N] = mat_h(J_H)
-    return W
+    return ip_rows(W_hat, Vs, Cx, N)
+
+
+def _fused_epoch(X, W_hat, Cx, n_src: int, model: str):
+    """One epoch through the fused update kernel: demix -> power -> phi in
+    plain ops, then :func:`update_rows` over all bins (the composition of
+    ``overiva_tpu/ops/pallas_epoch.py:11-17``). The f32 tier of
+    :func:`_epoch`; on a CUDA device X, W_hat and Cx must be complex64 and
+    contiguous. Returns the new W_hat."""
+    _, phi = activations_from_power(power(demix(X, W_hat[:, :n_src, :])), X.shape[1], model)
+    return update_rows(phi, X, Cx, W_hat, n_src)
 
 
 def overiva_iterations(X, W_hat, Cx, n_src: int, n_iter: int, model: str,
@@ -143,3 +126,33 @@ def overiva_run(X, n_src: int, n_iter: int, model: str, init_eig=False, W0=None)
     W_hat, Cx = prepare(X, n_src, init_eig, W0)
     W_hat = overiva_iterations(X, W_hat, Cx, n_src, n_iter, model)
     return demix(X, W_hat[:, :n_src, :]), W_hat
+
+
+def overiva_batch_run(Xb, n_src: int, n_iter: int, model: str, init_eig=False,
+                      proj_back=True):
+    """``overiva_run`` over a batch of same-shape mixtures, with the batch
+    written out (the JAX package's ``vmap``). Xb: (B, T, F, M). Returns Y
+    (B, T, F, n_src), projection-back-scaled when ``proj_back``.
+
+    The mixtures are folded into the bin axis, (T, B*F, M), so every
+    per-bin step (init, covariances, solves, projection back) runs over the
+    B*F bins in one batched call. Only the activations couple bins: the
+    power sums over each mixture's own F bins, and each mixture's phi
+    weights its own bins' covariances.
+    """
+    B, T, F, M = Xb.shape
+    N = n_src
+    X = Xb.transpose(0, 1).reshape(T, B * F, M)
+    Xm = X.reshape(T, B, F, M)  # the same memory, mixtures apart
+    W_hat, Cx = prepare(X, N, init_eig)
+    for _ in range(n_iter):
+        Y = demix(X, W_hat[:, :N, :]).reshape(T, B, F, N)
+        _, phi = activations_from_power(power(Y), F, model)  # (T, B, N)
+        # each mixture's phi weights its own bins (the f32 tier)
+        Xw = Xm[None] * phi.permute(2, 0, 1)[..., None, None].to(X.real.dtype)
+        Vs = torch.einsum("ktbfm,tbfn->kbfmn", Xw, Xm.conj()) / T
+        W_hat = ip_rows(W_hat, Vs.reshape(N, B * F, M, M), Cx, N)
+    Y = demix(X, W_hat[:, :N, :])
+    if proj_back:
+        Y = apply_projection_back(Y, X[:, :, 0])
+    return Y.reshape(T, B, F, N).transpose(0, 1)

@@ -19,12 +19,13 @@ __all__ = ["EPS", "REL_EPS", "MODELS", "power", "activations_from_power"]
 
 
 def power(Y):
-    """Per-frame per-source power sum_f |Y|^2. Y: (T, F, N) -> (T, N)."""
-    return torch.sum(Y.abs() ** 2, dim=1)
+    """Per-frame per-source power sum_f |Y|^2. Y: (..., F, N) -> (..., N)."""
+    return torch.sum(Y.abs() ** 2, dim=-2)
 
 
 def activations_from_power(pw, n_freq: int, model: str, eps: float = EPS):
-    """r, phi = 1/r from the per-frame power (T, N)."""
+    """r, phi = 1/r from the per-frame power (T, ..., N); the relative
+    floor takes the maximum over frames."""
     if model == "laplace":
         r = 2.0 * torch.sqrt(pw)
     elif model == "gauss":

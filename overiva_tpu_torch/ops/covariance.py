@@ -9,7 +9,10 @@ Tiers of ``wcov``:
 - ``"bf16"``: bf16 operands (x, phi and their product), f32 accumulation.
 - ``"bf16pack"``: the same numerics through the packed kernel
   (``ops/wcov_packed.py``); the only tier with a hand-written CUDA kernel.
-- ``"f32x3"`` (the JAX package's ``Precision.HIGH``) has no Hopper twin yet.
+- ``"f32x3"``: the JAX package's middle tier (``lax.Precision.HIGH``, three
+  bf16 MXU passes, about 1e-5 relative on the TPU). Here it is the exact
+  f32 tier: TF32 is off and full f32 is the card's plain path, so it is at
+  least as accurate as the TPU tier it stands for.
 """
 
 from __future__ import annotations
@@ -25,13 +28,6 @@ __all__ = [
     "weighted_covariance_chunked",
     "weighted_covariance_tf",
 ]
-
-
-def _no_f32x3():
-    return NotImplementedError(
-        "wcov='f32x3' has no Hopper twin yet (ROADMAP.md Queue 1 item 10); "
-        "use wcov='f32'"
-    )
 
 
 def covariance(X):
@@ -64,6 +60,8 @@ def weighted_covariance_all(X, phi, wcov: str = "f32", chunk=None):
     bounds the (K, chunk, F, M) weighted temporary at the same result.
     """
     T = X.shape[0]
+    if wcov == "f32x3":
+        wcov = "f32"
     if wcov == "bf16pack" and chunk and chunk < T:
         # the packed kernel exists to avoid the weighted temporary; a
         # chunked form would re-pack X per block
@@ -71,8 +69,6 @@ def weighted_covariance_all(X, phi, wcov: str = "f32", chunk=None):
             "wcov='bf16pack' has no chunked form — drop chunk_frames or "
             "use wcov='bf16'"
         )
-    if wcov == "f32x3":
-        raise _no_f32x3()
     if chunk and chunk < T:
         pad = -T % chunk
         if pad:
@@ -108,8 +104,6 @@ def weighted_covariance_tf(X, w_tf, wcov: str = "f32"):
             "IP epoch path; use wcov='bf16' for the per-(t,f)-weighted "
             "families"
         )
-    if wcov == "f32x3":
-        raise _no_f32x3()
     T = X.shape[0]
     if wcov == "bf16":
         return _bf16_contract(X, w_tf[:, :, None], "tfm,tfn->fmn") / T

@@ -29,21 +29,24 @@ def stft_pad(x, nfft: int, hop: int):
 
 
 def analysis(x, nfft: int, hop: int, win=None):
-    """x: (n_samples[, M]) real -> X: (T, nfft//2+1[, M]) complex."""
+    """x: (n_samples[, M]) real -> X: (T, nfft//2+1[, M]) complex.
+
+    A batch (B, n_samples, M) gives (B, T, nfft//2+1, M) in one transform."""
     squeeze = x.ndim == 1
     if squeeze:
         x = x[:, None]
-    if x.shape[0] < nfft:
+    if x.shape[-2] < nfft:
         raise ValueError("signal shorter than one frame")
     win = torch.as_tensor(hann(nfft) if win is None else win, dtype=x.dtype, device=x.device)
-    frames = x.unfold(0, nfft, hop).transpose(1, 2)  # (T, nfft, M)
-    X = torch.fft.rfft(frames * win[None, :, None], n=nfft, dim=1)
-    return X[:, :, 0] if squeeze else X
+    frames = x.unfold(-2, nfft, hop).transpose(-1, -2)  # (..., T, nfft, M)
+    X = torch.fft.rfft(frames * win[:, None], n=nfft, dim=-2)
+    return X[..., 0] if squeeze else X
 
 
 def synthesis(X, nfft: int, hop: int, win_s=None):
     """X: (T, nfft//2+1[, M]) complex -> (n_samples[, M]) real.
 
+    A batch (B, T, nfft//2+1, M) gives (B, n_samples, M) in one pass.
     Weighted overlap-add with ``index_add_``. On CUDA that sums with
     atomics, so overlapping samples add in a varying order: results agree
     between runs to rounding, not bit for bit.
@@ -51,16 +54,16 @@ def synthesis(X, nfft: int, hop: int, win_s=None):
     squeeze = X.ndim == 2
     if squeeze:
         X = X[:, :, None]
-    frames = torch.fft.irfft(X, n=nfft, dim=1)  # (T, nfft, M)
+    frames = torch.fft.irfft(X, n=nfft, dim=-2)  # (..., T, nfft, M)
     if win_s is None:
         win_s = synthesis_window(hann(nfft), hop)
     win_s = torch.as_tensor(win_s, dtype=frames.dtype, device=frames.device)
-    frames = frames * win_s[None, :, None]
-    T, _, M = frames.shape
+    frames = frames * win_s[:, None]
+    *lead, T, _, M = frames.shape
     idx = (
         torch.arange(nfft, device=X.device)[None, :]
         + hop * torch.arange(T, device=X.device)[:, None]
     ).reshape(-1)
-    out = torch.zeros(((T - 1) * hop + nfft, M), dtype=frames.dtype, device=X.device)
-    out.index_add_(0, idx, frames.reshape(T * nfft, M))
-    return out[:, 0] if squeeze else out
+    out = torch.zeros((*lead, (T - 1) * hop + nfft, M), dtype=frames.dtype, device=X.device)
+    out.index_add_(out.ndim - 2, idx, frames.reshape(*lead, T * nfft, M))
+    return out[..., 0] if squeeze else out

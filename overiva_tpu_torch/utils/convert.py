@@ -6,6 +6,9 @@ The JAX package hands its state out as NumPy arrays: ``W_hat`` from
 STFT ``X``. :func:`state_to_torch` turns such a mapping into tensors on one
 device and dtype, so the port can continue a run the JAX package started
 (or start from the same W); :func:`state_to_numpy` goes back.
+:func:`planes_to_torch` joins the float planes that the JAX package's
+Pallas kernels take and return (``Xr, Xi``, ``Wr, Wi``, ...) into one
+complex tensor.
 """
 
 from __future__ import annotations
@@ -13,7 +16,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["as_tensor", "state_to_numpy", "state_to_torch", "to_torch_dtype"]
+__all__ = [
+    "as_tensor", "planes_to_torch", "state_to_numpy", "state_to_torch",
+    "to_torch_dtype",
+]
 
 _NP_TO_TORCH = {
     np.dtype(np.complex64): torch.complex64,
@@ -52,3 +58,11 @@ def state_to_torch(state, device, dtype=torch.complex64):
 def state_to_numpy(state):
     """{name: tensor} -> {name: NumPy array} (copied to the host)."""
     return {k: v.detach().cpu().numpy() for k, v in state.items()}
+
+
+def planes_to_torch(re, im, device, dtype=torch.complex64):
+    """Real and imaginary NumPy planes -> one complex tensor of ``dtype``."""
+    re, im = np.asarray(re), np.asarray(im)
+    if re.shape != im.shape:
+        raise ValueError(f"plane shapes differ: {re.shape} and {im.shape}")
+    return as_tensor(re + 1j * im, to_torch_dtype(dtype), device)

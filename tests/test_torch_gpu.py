@@ -1,5 +1,6 @@
-"""PyTorch port on a CUDA card: the hand-written kernel against its plain
-version, and the main path on the card against the same path on the CPU.
+"""PyTorch port on a CUDA card: the hand-written kernels (``wcov_packed``,
+``update_rows``) against their plain versions, and the main path and the
+fused epoch on the card against the same on the CPU.
 
 Every test here needs a card and skips without one. This file imports no
 JAX, so it also runs where JAX is not installed:
@@ -12,6 +13,8 @@ import pytest
 import torch
 
 from overiva_tpu_torch import api
+from overiva_tpu_torch.models import overiva as core
+from overiva_tpu_torch.ops import update_rows as tur
 from overiva_tpu_torch.ops import wcov_packed as twp
 
 pytestmark = pytest.mark.gpu
@@ -64,6 +67,65 @@ def test_kernel_refuses_bad_inputs(cuda):
     big = torch.zeros((2, 33, 4), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="threads"):
         twp.wcov_packed((big, big), torch.ones((4, 1), device=cuda), 4)
+
+
+def _update_state(seed, M, N, F, T, device):
+    """Random X and phi, with W and Cx prepared as ``api.overiva`` prepares
+    them, all on ``device``."""
+    X, phi = _inputs(seed, T, F, M, N)
+    X, phi = X.to(device), phi.to(device)
+    W, Cx = core.prepare(X, N, False)
+    return phi, X, Cx.contiguous(), W.contiguous()
+
+
+@pytest.mark.parametrize(
+    "M,N,F,T",
+    [
+        (8, 3, 2049, 128), (8, 3, 2049, 512), (2, 2, 129, 77), (5, 2, 129, 77),
+        (8, 8, 129, 77), (16, 16, 9, 96), (32, 5, 7, 160),
+    ],
+)
+def test_update_rows_kernel_matches_plain(cuda, M, N, F, T):
+    """f32 sums in another order, amplified by the condition of W V:
+    1e-4 max|W|. Each call on the card is one launch."""
+    phi, X, Cx, W = _update_state(F + T + M, M, N, F, T, cuda)
+    before = tur.update_rows.launches
+    W_k = tur.update_rows(phi, X, Cx, W, N)
+    torch.cuda.synchronize()
+    assert tur.update_rows.launches == before + 1
+    W_p = tur.update_rows_reference(phi, X, Cx, W, N)
+    assert tur.update_rows.launches == before + 1  # the plain version never counts
+    assert torch.isfinite(W_k).all()
+    assert (W_k - W_p).abs().max().item() <= 1e-4 * W_p.abs().max().item()
+
+
+def test_update_rows_refuses_bad_inputs(cuda):
+    phi, X, Cx, W = _update_state(2, 4, 2, 16, 8, cuda)
+    with pytest.raises(ValueError, match="complex64 only"):
+        tur.update_rows(phi, X.to(torch.complex128), Cx, W, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        tur.update_rows(phi, X, Cx, W.transpose(1, 2), 2)
+    with pytest.raises(ValueError, match="one device"):
+        tur.update_rows(phi.cpu(), X, Cx, W, 2)
+    big = torch.zeros((16, 33, 33), dtype=torch.complex64, device=cuda)
+    X33 = torch.zeros((8, 16, 33), dtype=torch.complex64, device=cuda)
+    with pytest.raises(ValueError, match="M <= 32"):
+        tur.update_rows(phi, X33, big, big, 2)
+    with pytest.raises(ValueError, match="phi must be"):
+        tur.update_rows(phi[:, :1], X, Cx, W, 2)
+
+
+def test_fused_epoch_on_card_matches_cpu(cuda):
+    """complex64, 5 epochs of demix -> phi -> the fused kernel on the card
+    against the same epochs on the CPU (the plain version)."""
+    _, X, Cx, W = _update_state(4, 5, 2, 65, 64, "cpu")
+    Wc, Xc, Cxc = W.to(cuda), X.to(cuda), Cx.to(cuda)
+    before = tur.update_rows.launches
+    for _ in range(5):
+        W = core._fused_epoch(X, W, Cx, 2, "laplace")
+        Wc = core._fused_epoch(Xc, Wc, Cxc, 2, "laplace")
+    assert tur.update_rows.launches == before + 5
+    assert (Wc.cpu() - W).abs().max().item() <= 1e-4 * W.abs().max().item()
 
 
 def test_main_path_on_card_matches_cpu(cuda):

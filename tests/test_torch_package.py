@@ -11,6 +11,7 @@ import torch
 
 import overiva_tpu_torch
 from overiva_tpu_torch import _build
+from overiva_tpu_torch.ops import update_rows as tur
 from overiva_tpu_torch.ops import wcov_packed as twp
 from overiva_tpu_torch.utils.convert import state_to_numpy, state_to_torch
 
@@ -22,8 +23,9 @@ def test_package_never_imports_jax():
         "import sys\n"
         "import overiva_tpu_torch\n"
         "from overiva_tpu_torch import api, _build\n"
-        "from overiva_tpu_torch.models import overiva\n"
-        "from overiva_tpu_torch.ops import covariance, linalg, projection, stft, wcov_packed\n"
+        "from overiva_tpu_torch.models import auxiva_pca, overiva\n"
+        "from overiva_tpu_torch.ops import covariance, linalg, projection, stft\n"
+        "from overiva_tpu_torch.ops import update_rows, wcov_packed\n"
         "from overiva_tpu_torch.utils import convert\n"
         "assert overiva_tpu_torch.overiva is api.overiva\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
@@ -39,7 +41,8 @@ def test_lazy_exports_and_device_resolution():
     from overiva_tpu_torch import api
 
     for name in ("overiva", "auxiva", "separate", "stft_analysis", "stft_synthesis",
-                 "projection_back"):
+                 "projection_back", "pca", "auxiva_pca", "overiva_batch",
+                 "stft_analysis_batch", "stft_synthesis_batch"):
         assert getattr(overiva_tpu_torch, name) is getattr(api, name)
     with pytest.raises(AttributeError):
         overiva_tpu_torch.not_a_function  # noqa: B018
@@ -81,6 +84,10 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         xr = torch.zeros((3, 2, 4), dtype=torch.bfloat16)
         with pytest.raises(RuntimeError, match="nvcc not found"):
             twp._launch(xr, xr.clone(), torch.ones((4, 1)))
+        X = torch.zeros((4, 3, 2), dtype=torch.complex64)
+        W = torch.zeros((3, 2, 2), dtype=torch.complex64)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            tur._launch(torch.ones((4, 1)), X, W, W, 1)
     finally:
         _build.library.cache_clear()
 

@@ -99,7 +99,7 @@ def test_f32_covariances_match_jax(chunk):
 
 def test_bf16pack_scope_guards():
     """bf16pack exists only on the IP epoch path, without chunking, as in
-    the JAX package; f32x3 is not ported yet."""
+    the JAX package; f32x3 runs (the exact f32 tier here)."""
     X, phi = _inputs(8, 16, 5, 2, 2)
     Xt, pt = torch.from_numpy(X), torch.from_numpy(phi)
     with pytest.raises(ValueError, match="bf16pack"):
@@ -112,7 +112,7 @@ def test_bf16pack_scope_guards():
         tapi.overiva(X, n_src=2, wcov="bf16pack", chunk_frames=8)
     with pytest.raises(ValueError, match="bf16pack"):
         japi.overiva(X, n_src=2, wcov="bf16pack", chunk_frames=8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tapi.overiva(X, n_src=2, n_iter=1, wcov="f32x3")
+    Y3 = tapi.overiva(X, n_src=2, n_iter=1, wcov="f32x3")
+    np.testing.assert_array_equal(Y3, tapi.overiva(X, n_src=2, n_iter=1))
     with pytest.raises(ValueError, match="wcov"):
         tapi.overiva(X, n_src=2, wcov="f16")
