@@ -9,10 +9,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (``nvidia-smi``) and checks that TF32 is off;
 2. build: compiles ``overiva_tpu_torch/csrc/*.cu`` with nvcc (sm_90a);
 3. kernel: ``wcov_packed`` against its plain PyTorch version on the card, at
-   the main path's shapes and one ragged shape, with times;
+   the main path's shapes and one ragged shape, with times, the time of one
+   library call that computes the same product (complex64 ``torch.matmul``)
+   and the card's least time for the work (``bound_ms``);
 3b. fused: ``update_rows`` (the fused per-bin IP update) against its plain
-   version at the headline and ragged shapes and on knife-edge bins, with
-   the kernel, plain and eager-epoch times;
+   version at the headline and ragged shapes (F=129, not a multiple of the
+   warp kernel's bins per block) and on knife-edge bins, with the kernel,
+   plain and eager-epoch times and the bound;
 4. trajectory: OverIVA in complex128 on the card against the float64 NumPy
    oracle at full width (M=8, N=3, nfft 4096, T=128), 10 iterations;
 5. main path: stft_analysis -> overiva (wcov="f32" and "bf16pack", complex64,
@@ -26,8 +29,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 
 The second-to-last line is a JSON object of the kernels, the last line
 ``{"ok": true, "device": {...}}``. The float64 oracle and bss_eval are the
-repository's NumPy-only references (``overiva_tpu.oracle``,
-``overiva_tpu.metrics``); nothing of JAX is imported, which the run checks.
+port's own copies of the repository's NumPy references
+(``overiva_tpu_torch.oracle``, ``overiva_tpu_torch.metrics``): the script
+imports only ``overiva_tpu_torch``, torch, numpy and scipy, and checks at
+its end that neither JAX nor the JAX package was loaded.
 """
 
 from __future__ import annotations
@@ -43,6 +48,9 @@ import torch
 
 NFFT, HOP = 4096, 2048
 M, N = 8, 3  # the headline configuration: 8 mics, 3 sources
+# H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s, f32 FLOP/s
+# outside the tensor cores, bf16 tensor-core FLOP/s
+HBM_BYTES_S, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
 KERNEL_TOL = 1e-5  # max|kernel - plain| / max|V|: f32 summation order only
 # max|kernel - plain| / max|W| of the fused update: f32 sums in another
 # order, amplified by the condition of W V at M = 8
@@ -92,14 +100,59 @@ def samples_for_frames(n_frames):
     return (n_frames - 1) * HOP
 
 
+# ----------------------------------------------------------------- bounds
+
+def bound(n_bytes, flops, peak_flops):
+    """(ms, what sets it): the least time the card could take for work that
+    moves ``n_bytes`` (each input read once, each output written once) and
+    does ``flops`` at ``peak_flops``."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, flops / peak_flops
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def wcov_bound(K, F, m, T):
+    """bf16 planes in, phi in, f32 planes out; 8 flops per weighted product
+    (exact in f32 for bf16 operands, so the bf16 tensor-core rate)."""
+    n_bytes = 2 * F * m * T * 2 + T * K * 4 + 2 * K * F * m * m * 4
+    flops = 8 * K * F * m * m * T + 2 * K * F * m * T
+    return bound(n_bytes, flops, BF16_FLOPS)
+
+
+def update_rows_bound(m, n, F, T):
+    """X, phi, Cx, W in and W out, all in f32. The covariances are Hermitian
+    and share x x^H: per bin and frame, each upper-triangle product once
+    (6 flops off the diagonal, 3 on it), then one real-weighted multiply-add
+    per source (4 flops off the diagonal, 2 on it). Per bin and source, at 8
+    flops per complex multiply-add: W V_k, the Gaussian elimination and back
+    substitution of the m x (m+1) tableau, the quadratic form, the tmp row
+    and the N x m OC elimination."""
+    n_bytes = T * F * m * 8 + T * n * 4 + 3 * F * m * m * 8
+    off = m * (m - 1) // 2
+    cov = F * T * (off * (6 + 4 * n) + m * (3 + 2 * n))
+    gauss = (m**3 - m) // 3 + m * (m - 1) // 2
+    solves = n * F * 8 * (m**3 + gauss + m * m + m * m + n * n * m)
+    return bound(n_bytes, cov + solves, F32_FLOPS)
+
+
 # ----------------------------------------------------------------- timing
 
-def cuda_ms(fn, repeats=20, warmup=3):
-    """Mean device time of ``fn`` in ms, from CUDA events over ``repeats``."""
+def cuda_ms(fn, repeats=20, warmup=3, queued=False):
+    """Mean time of ``fn`` in ms, from CUDA events over ``repeats`` calls.
+    With ``queued`` the calls wait behind a device-side sleep twice as long
+    as the host takes to enqueue them, so that the events read the device's
+    time alone and not the host's launch rate. That suits a call of a few
+    launches; an eager chain of hundreds would fill the launch queue, and
+    its time is the host's anyway."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    if queued:
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0
+        # cycles: at a clock of at most 2 GHz this waits at least that long
+        torch.cuda._sleep(int(2e9 * (2 * repeats * host_s + 1e-3)))
     start.record()
     for _ in range(repeats):
         fn()
@@ -148,10 +201,8 @@ def phase_build():
     lib = _build.build_library()
     _build.library()
     seconds = time.perf_counter() - t0
-    ptxas = [
-        line.strip() for line in open(f"{lib}.log")
-        if "registers" in line or "spill" in line
-    ]
+    with open(f"{lib}.log") as f:
+        ptxas = _build.ptxas_summary(f.read())
     log(f"[build] {lib.name} in {seconds:.2f} s; " + " | ".join(ptxas))
 
 
@@ -182,11 +233,25 @@ def phase_kernel(dev, seed):
         if not err <= KERNEL_TOL * scale:
             raise AssertionError(line)
         if timed:
-            ms = cuda_ms(lambda: wcov_packed(xpack, phi, T))
+            ms = cuda_ms(lambda: wcov_packed(xpack, phi, T), queued=True)
             plain_ms = cuda_ms(lambda: torch.complex(*wcov_packed_reference(*xpack, phi)) / T)
-            line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (20 runs)"
+            # the library yardstick: one complex64 matmul of the prepared
+            # weighted operand (K, F, M, T) by X^H (F, T, M); the port never
+            # calls it
+            Xw = (X.permute(1, 2, 0)[None] * phi.t()[:, None, None, :]).contiguous()
+            XH = X.permute(1, 0, 2).conj().resolve_conj().contiguous()
+            library_ms = cuda_ms(lambda: torch.matmul(Xw, XH), queued=True)
+            bound_ms, bound_by = wcov_bound(K, F, m, T)
+            line += (
+                f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library matmul "
+                f"{library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}) = "
+                f"{100 * bound_ms / ms:.1f} % of the kernel (20 runs)"
+            )
             if (K, F, m, T) == (N, 2049, M, 128):
-                result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                result = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                }
         log(line)
     return result
 
@@ -209,7 +274,7 @@ def phase_fused_kernel(dev, seed):
     cases = [
         (M, N, 2049, 128, "timed"), (M, N, 2049, 512, "timed"),
         (2, 2, 129, 77, ""), (5, 2, 129, 77, ""), (8, 8, 129, 77, ""),
-        (M, N, 129, 77, "knife"),
+        (7, 4, 129, 100, ""), (M, N, 129, 77, "knife"),
     ]
     for m, n, F, T, kind in cases:
         X = rng.standard_normal((T, F, m)) + 1j * rng.standard_normal((T, F, m))
@@ -246,9 +311,14 @@ def phase_fused_kernel(dev, seed):
         else:
             line += f" (tol {FUSED_TOL:g})"
         if kind == "timed":
-            ms = cuda_ms(lambda: update_rows(phi, X, Cx, W, n))
+            ms = cuda_ms(lambda: update_rows(phi, X, Cx, W, n), queued=True)
             plain_ms = cuda_ms(lambda: update_rows_reference(phi, X, Cx, W, n))
-            line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            bound_ms, bound_by = update_rows_bound(m, n, F, T)
+            line += (
+                f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bound_ms * 1e3:.2f} us ({bound_by}) = {100 * bound_ms / ms:.1f} % "
+                "of the kernel, no single library call"
+            )
             if T == 128:
                 eager_ms = cuda_ms(lambda: core._epoch(X, W, Cx, n, "laplace"))
                 fused_ms = cuda_ms(lambda: core._fused_epoch(X, W, Cx, n, "laplace"))
@@ -257,6 +327,7 @@ def phase_fused_kernel(dev, seed):
                 )
                 result = {
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                     "eager_epoch_ms": eager_ms, "fused_epoch_ms": fused_ms,
                 }
             line += " (20 runs)"
@@ -269,7 +340,7 @@ def rel_err(a, b):
 
 
 def phase_trajectory(dev, X):
-    import overiva_tpu.oracle as oracle
+    from overiva_tpu_torch import oracle
     from overiva_tpu_torch import api
 
     t0 = time.perf_counter()
@@ -293,14 +364,14 @@ def phase_trajectory(dev, X):
 
 
 def score(y, images, n):
-    from overiva_tpu.metrics import bss_eval_sources
+    from overiva_tpu_torch.metrics import bss_eval_sources
 
     sdr, sir, _, _ = bss_eval_sources(images[:, :, 0], np.asarray(y)[:n].T)
     return sdr, sir
 
 
 def phase_main_path(dev, mix, images, X64):
-    import overiva_tpu.oracle as oracle
+    from overiva_tpu_torch import oracle
     from overiva_tpu_torch import api
     from overiva_tpu_torch.ops.update_rows import update_rows
     from overiva_tpu_torch.ops.wcov_packed import wcov_packed
@@ -371,7 +442,7 @@ def phase_main_path(dev, mix, images, X64):
 def phase_fused_run(dev, mix, images, main):
     """30 epochs through the fused kernel, prepared as api.overiva prepares
     them, on phase 5's mixture; quality against phase 5's oracle scores."""
-    import overiva_tpu.oracle as oracle
+    from overiva_tpu_torch import oracle
     from overiva_tpu_torch import api
     from overiva_tpu_torch.models import overiva as core
     from overiva_tpu_torch.ops.projection import apply_projection_back
@@ -415,6 +486,29 @@ def phase_fused_run(dev, mix, images, main):
         f"[fused] 30 x _fused_epoch (T=128, F=2049, M=8, N=3, c64): {t * 1e3:.2f} ms "
         f"best of 3 = {30 / t:.1f} it/s; eager overiva f32 {main['eager_s'] * 1e3:.2f} ms"
     )
+    # what holds the run back: the host's enqueue time against the synced
+    # wall, and the device's busy time (profiler) in one more run
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused_overiva()
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fused_overiva()
+        torch.cuda.synchronize()
+    # only the kernels' own entries: a CPU op's entry repeats the device
+    # time of the kernels it launched
+    busy = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    ) / 1e3
+    log(
+        f"[fused] host enqueue {enqueue * 1e3:.2f} ms of a {wall * 1e3:.2f} ms synced run "
+        f"({100 * enqueue / wall:.1f} %); device busy (profiler) "
+        + (f"{busy:.2f} ms" if busy > 0 else "not measured (no device time in the trace)")
+    )
     return launches
 
 
@@ -443,7 +537,7 @@ def main():
     seed = parser.parse_args().seed
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
-    import overiva_tpu.oracle as oracle
+    from overiva_tpu_torch import oracle
 
     dev = phase_device()
     phase_build()
@@ -458,8 +552,12 @@ def main():
     fused_launches = phase_fused_run(dev, mix, images, main_path)
     phase_requests(dev, seed)
 
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    loaded = sorted(
+        m for m in sys.modules
+        if m in ("jax", "overiva_tpu") or m.startswith(("jax.", "overiva_tpu."))
+    )
+    if loaded:
+        raise AssertionError(f"JAX or the JAX package was imported: {loaded}")
     print(json.dumps({"kernels": [{
         "name": "wcov_packed",
         "route": "cuda",

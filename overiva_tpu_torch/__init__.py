@@ -12,9 +12,10 @@ to PyTorch on an NVIDIA H100. The public API mirrors ``overiva_tpu.api``:
 
 Inputs may be NumPy arrays or tensors. NumPy in gives NumPy out; a tensor
 in gives a tensor out, on the device the work ran on. Every public
-function takes ``device=``; see :func:`resolve_device`. The package
-imports ``torch`` and never ``jax``; it reuses the NumPy-only windows of
-``overiva_tpu.oracle.stft``.
+function takes ``device=``; see :func:`resolve_device`: a NumPy input runs
+on CUDA unless ``device="cpu"`` is given. The package imports ``torch`` and
+never ``jax``, nor anything of ``overiva_tpu``: the NumPy references it
+needs are its own copies (``oracle/``, ``metrics/``).
 
 Two CUDA C++ kernels for ``sm_90a``, built with ``nvcc`` at first use: the
 weighted covariance of ``wcov="bf16pack"`` (``csrc/wcov_packed.cu``) and
@@ -45,7 +46,9 @@ def __getattr__(name):
 
 def resolve_device(device=None, like=None):
     """The device a call runs on: ``device`` if given, else the device of
-    the tensor ``like``, else CUDA when present, else the CPU.
+    the tensor ``like``, else CUDA. Without a card that last case raises
+    RuntimeError: the port never falls back to the CPU unasked, so a CPU
+    run passes ``device="cpu"``.
 
     On CUDA it also turns TF32 off for matrix products and cuDNN, so that
     float32 work is full float32 (the JAX package's ``Precision.HIGHEST``).
@@ -56,8 +59,14 @@ def resolve_device(device=None, like=None):
         dev = torch.device(device)
     elif isinstance(like, torch.Tensor):
         dev = like.device
+    elif torch.cuda.is_available():
+        dev = torch.device("cuda")
     else:
-        dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        raise RuntimeError(
+            "no CUDA device (torch.cuda.is_available() is False): the port "
+            'runs on CUDA unless asked otherwise; pass device="cpu" to run '
+            "on the CPU"
+        )
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

@@ -18,12 +18,13 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "build_library", "library"]
+__all__ = ["BUILD_DIR", "CSRC", "build_library", "library", "ptxas_summary"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -102,6 +103,32 @@ def build_library() -> Path:
         Path(f"{lib}.log").write_text("".join(logs))
         os.replace(so, lib)  # atomic: a reader never sees a partial file
     return lib
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per kernel of a build log made with ``-Xptxas -v``: its
+    name (with its template argument), registers, stack frame and spills."""
+    rows, name, frame = [], None, ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            found = re.search(r"[A-Za-z_]+kernel", mangled)
+            name = found.group(0) if found else mangled
+            arg = re.match(r"ILi(\d+)E", mangled[found.end():]) if found else None
+            name += f"<{arg.group(1)}>" if arg else ""
+            frame = ""
+            continue
+        props = re.search(
+            r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line
+        )
+        if props and name:
+            frame = "{} B stack, {} B spill stores, {} B spill loads".format(*props.groups())
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            rows.append(f"{name}: {used.group(1)} registers, {frame}")
+            name = None
+    return rows
 
 
 @functools.cache

@@ -13,7 +13,8 @@ signatures and validation plus ``device=``:
 
 A NumPy input gives a NumPy output; a tensor input gives a tensor on the
 device the work ran on. ``device`` defaults to the input tensor's device,
-else CUDA when present, else the CPU (:func:`resolve_device`). The default
+else CUDA; without a card a NumPy input needs ``device="cpu"``
+(:func:`resolve_device` raises otherwise). The default
 dtype is complex64. Complex values cross the host boundary as they are.
 """
 

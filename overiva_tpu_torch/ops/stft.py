@@ -3,14 +3,15 @@
 Counterpart of ``overiva_tpu/ops/stft.py``, with the conventions of the
 NumPy oracle (``overiva_tpu/oracle/stft.py``): hann analysis window,
 canonical-dual synthesis window, hop = nfft // 2 by default, frames-first
-complex output ``(T, nfft//2+1, M)``. The windows are the oracle's.
+complex output ``(T, nfft//2+1, M)``. The windows are those of the port's
+copy of the oracle (``overiva_tpu_torch/oracle/stft.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from overiva_tpu.oracle.stft import hann, synthesis_window
+from ..oracle.stft import hann, synthesis_window
 
 __all__ = ["analysis", "synthesis", "stft_pad"]
 

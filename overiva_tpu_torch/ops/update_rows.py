@@ -11,8 +11,10 @@ orthogonal constraint J^H = solve((W1 Cx)[:, :N], (W1 Cx)[:, N:]).
 - :func:`update_rows_reference` is the plain PyTorch version of the kernel:
   the f32-tier weighted covariances, then :func:`ip_rows`.
 - :func:`update_rows` is the wrapper: the CUDA kernel
-  (``csrc/update_rows.cu``) for CUDA tensors, the plain version for CPU
-  tensors. On a CUDA tensor it launches the kernel or raises.
+  (``csrc/update_rows.cu``; a warp per bin for 2 <= M <= 8, a block per
+  bin for larger M, chosen inside the launch) for CUDA tensors, the plain
+  version for CPU tensors. On a CUDA tensor it launches the kernel or
+  raises.
 
 Unlike the Pallas kernel, both carry the production guards of
 ``ops/linalg.py`` (dead pivots, ``clamp_pow2``, the ``quad_form``
@@ -30,7 +32,7 @@ from .linalg import clamp_pow2, gauss_solve, mat_h, quad_form
 
 __all__ = ["MAX_M", "ip_rows", "update_rows", "update_rows_reference"]
 
-MAX_M = 32  # one thread per (m, n) element: M * M <= 1024 threads a block
+MAX_M = 32  # the block-per-bin kernel: one thread per (m, n), M * M <= 1024
 
 
 def ip_rows(W_hat, Vs, Cx, n_src: int):

@@ -36,14 +36,14 @@ def _stft_batch(seed, B=2, T=40, F=17, M=4):
 def test_overiva_batch_matches_jax_and_per_clip(model, init_eig, proj_back):
     X = _stft_batch(5)
     kw = dict(n_src=2, n_iter=6, model=model, init_eig=init_eig, proj_back=proj_back)
-    Yt = tapi.overiva_batch(X, dtype=C128, **kw)
+    Yt = tapi.overiva_batch(X, dtype=C128, **kw, device="cpu")
     Yj = japi.overiva_batch(X, dtype=C128, **kw)
     assert isinstance(Yt, np.ndarray) and Yt.shape == (2, 40, 17, 2) and Yt.dtype == C128
     np.testing.assert_allclose(Yt, Yj, rtol=1e-6, atol=1e-8)
     for b in range(X.shape[0]):
         Y1 = tapi.overiva(
             X[b], n_src=2, n_iter=6, model=model, init_eig=init_eig,
-            proj_back=proj_back, dtype=C128,
+            proj_back=proj_back, dtype=C128, device="cpu",
         )
         np.testing.assert_allclose(Yt[b], Y1, rtol=1e-9, atol=1e-12)
 
@@ -65,41 +65,42 @@ def test_stft_batch_forms_match_jax_and_per_clip():
     rng = np.random.default_rng(8)
     nfft, hop = 256, 128
     x = rng.standard_normal((3, 3000, 2))
-    Xt = tapi.stft_analysis_batch(x, nfft, dtype=C128)
+    Xt = tapi.stft_analysis_batch(x, nfft, dtype=C128, device="cpu")
     Xj = japi.stft_analysis_batch(x, nfft, dtype=C128)
     assert Xt.shape == Xj.shape == (3, 22, nfft // 2 + 1, 2)
     np.testing.assert_allclose(Xt, Xj, rtol=1e-6, atol=1e-9)
     for b in range(3):
         np.testing.assert_allclose(
-            Xt[b], tapi.stft_analysis(x[b], nfft, dtype=C128), rtol=1e-12, atol=1e-12
+            Xt[b], tapi.stft_analysis(x[b], nfft, dtype=C128, device="cpu"),
+            rtol=1e-12, atol=1e-12,
         )
-    mono = tapi.stft_analysis_batch(x[:, :, 0], nfft, dtype=C128)
+    mono = tapi.stft_analysis_batch(x[:, :, 0], nfft, dtype=C128, device="cpu")
     np.testing.assert_allclose(mono, Xt[..., 0], rtol=1e-12, atol=1e-12)
 
-    yt = tapi.stft_synthesis_batch(Xt, nfft, dtype=C128)
+    yt = tapi.stft_synthesis_batch(Xt, nfft, dtype=C128, device="cpu")
     yj = japi.stft_synthesis_batch(Xt, nfft, dtype=C128)
     np.testing.assert_allclose(yt, yj, rtol=1e-6, atol=1e-9)
     for b in range(3):
         np.testing.assert_allclose(
-            yt[b], tapi.stft_synthesis(Xt[b], nfft, dtype=C128), rtol=1e-12, atol=1e-12
+            yt[b], tapi.stft_synthesis(Xt[b], nfft, dtype=C128, device="cpu"), rtol=1e-12, atol=1e-12
         )
     # win_s is honoured, as its regression test in tests/test_pipeline_api.py
     # requires of the JAX version
     ones = np.ones(nfft)
-    y_other = tapi.stft_synthesis_batch(Xt, nfft, hop, win_s=ones, dtype=C128)
+    y_other = tapi.stft_synthesis_batch(Xt, nfft, hop, win_s=ones, dtype=C128, device="cpu")
     assert not np.allclose(y_other, yt)
     np.testing.assert_allclose(
         y_other, japi.stft_synthesis_batch(Xt, nfft, hop, win_s=ones, dtype=C128),
         rtol=1e-6, atol=1e-9,
     )
     np.testing.assert_allclose(
-        y_other[1], tapi.stft_synthesis(Xt[1], nfft, win_s=ones, dtype=C128),
+        y_other[1], tapi.stft_synthesis(Xt[1], nfft, win_s=ones, dtype=C128, device="cpu"),
         rtol=1e-12, atol=1e-12,
     )
     with pytest.raises(ValueError, match="unbatched"):
-        tapi.stft_synthesis_batch(Xt[0], nfft)
+        tapi.stft_synthesis_batch(Xt[0], nfft, device="cpu")
     with pytest.raises(ValueError, match="B, n_samples"):
-        tapi.stft_analysis_batch(x[0, :, 0], nfft)
+        tapi.stft_analysis_batch(x[0, :, 0], nfft, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -110,30 +111,36 @@ def mixture52():
 
 
 def test_pca_matches_jax(mixture52):
-    Xr_t, E_t = tapi.pca(mixture52, 2, return_basis=True, dtype=C128)
+    Xr_t, E_t = tapi.pca(mixture52, 2, return_basis=True, dtype=C128, device="cpu")
     Xr_j, E_j = japi.pca(mixture52, 2, return_basis=True, dtype=C128)
     assert Xr_t.shape == (mixture52.shape[0], mixture52.shape[1], 2)
     np.testing.assert_allclose(E_t, E_j, rtol=1e-6, atol=1e-9)
     np.testing.assert_allclose(Xr_t, Xr_j, rtol=1e-6, atol=1e-9)
-    np.testing.assert_allclose(tapi.pca(mixture52, 2, dtype=C128), Xr_t, atol=1e-12)
+    np.testing.assert_allclose(tapi.pca(mixture52, 2, dtype=C128, device="cpu"), Xr_t, atol=1e-12)
 
 
 @pytest.mark.parametrize("n_src", [2, 5])
 def test_auxiva_pca_matches_jax(mixture52, n_src):
-    Yt, Wt = tapi.auxiva_pca(mixture52, n_src=n_src, n_iter=8, return_filters=True, dtype=C128)
+    Yt, Wt = tapi.auxiva_pca(
+        mixture52, n_src=n_src, n_iter=8, return_filters=True, dtype=C128, device="cpu"
+    )
     Yj, Wj = japi.auxiva_pca(mixture52, n_src=n_src, n_iter=8, return_filters=True, dtype=C128)
     assert Wt.shape == (mixture52.shape[1], n_src, n_src)
     np.testing.assert_allclose(Wt, Wj, rtol=1e-6, atol=1e-8)
     np.testing.assert_allclose(Yt, Yj, rtol=1e-6, atol=1e-8)
     # the model-level run is the same AuxIVA on the reduced STFT
     Y_run, _ = tpca.auxiva_pca_run(torch.from_numpy(mixture52), n_src, 8, "laplace")
-    Y_nopb = tapi.auxiva_pca(mixture52, n_src=n_src, n_iter=8, proj_back=False, dtype=C128)
+    Y_nopb = tapi.auxiva_pca(
+        mixture52, n_src=n_src, n_iter=8, proj_back=False, dtype=C128, device="cpu"
+    )
     np.testing.assert_allclose(Y_run.numpy(), Y_nopb, rtol=1e-9, atol=1e-12)
 
 
 def test_auxiva_pca_callback_and_probes(mixture52):
     snaps_t, snaps_j = [], []
-    tapi.auxiva_pca(mixture52, n_src=2, n_iter=11, callback=snaps_t.append, dtype=C128)
+    tapi.auxiva_pca(
+        mixture52, n_src=2, n_iter=11, callback=snaps_t.append, dtype=C128, device="cpu"
+    )
     japi.auxiva_pca(mixture52, n_src=2, n_iter=11, callback=snaps_j.append, dtype=C128)
     assert len(snaps_t) == len(snaps_j) == 2
     assert all(isinstance(s, np.ndarray) for s in snaps_t)
@@ -143,11 +150,11 @@ def test_auxiva_pca_callback_and_probes(mixture52):
     assert isinstance(Yt, torch.Tensor) and Yt.dtype == torch.complex64
     for inner in ("iss", "ip2"):
         with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            tapi.auxiva_pca(mixture52, n_src=2, inner=inner)
+            tapi.auxiva_pca(mixture52, n_src=2, inner=inner, device="cpu")
     with pytest.raises(ValueError, match="inner"):
-        tapi.auxiva_pca(mixture52, n_src=2, inner="bogus")
+        tapi.auxiva_pca(mixture52, n_src=2, inner="bogus", device="cpu")
     with pytest.raises(ValueError, match="n_src"):
-        tapi.auxiva_pca(mixture52, n_src=6)
+        tapi.auxiva_pca(mixture52, n_src=6, device="cpu")
 
 
 def test_wcov_f32x3_tier(mixture52):
@@ -169,11 +176,11 @@ def test_wcov_f32x3_tier(mixture52):
         tcov.weighted_covariance_tf(Xt, torch.from_numpy(w_tf), "f32x3"),
         tcov.weighted_covariance_tf(Xt, torch.from_numpy(w_tf)),
     )
-    Yt = tapi.overiva(mixture52, n_src=2, n_iter=8, wcov="f32x3", dtype=C128)
+    Yt = tapi.overiva(mixture52, n_src=2, n_iter=8, wcov="f32x3", dtype=C128, device="cpu")
     Yj = japi.overiva(mixture52, n_src=2, n_iter=8, wcov="f32x3", dtype=C128)
     np.testing.assert_allclose(Yt, Yj, rtol=1e-6, atol=1e-8)
     np.testing.assert_array_equal(
-        Yt, tapi.overiva(mixture52, n_src=2, n_iter=8, dtype=C128)
+        Yt, tapi.overiva(mixture52, n_src=2, n_iter=8, dtype=C128, device="cpu")
     )
 
 

@@ -78,11 +78,25 @@ def _update_state(seed, M, N, F, T, device):
     return phi, X, Cx.contiguous(), W.contiguous()
 
 
+def _warp_kernel_cases():
+    """Every specialisation M = 2..8 of the warp-per-bin kernel with
+    N in {1, ceil(M/2), M}; F not a multiple of the bins per block (7, 129,
+    2049) and T not a multiple of the staged chunk (77, 160, 512), in turn."""
+    cases, i = [], 0
+    for M in range(2, 9):
+        for N in sorted({1, -(-M // 2), M}):
+            cases.append((M, N, (7, 129, 2049)[i % 3], (77, 160, 512)[(i // 3) % 3]))
+            i += 1
+    return cases
+
+
 @pytest.mark.parametrize(
     "M,N,F,T",
     [
         (8, 3, 2049, 128), (8, 3, 2049, 512), (2, 2, 129, 77), (5, 2, 129, 77),
-        (8, 8, 129, 77), (16, 16, 9, 96), (32, 5, 7, 160),
+        (8, 8, 129, 77), (7, 4, 129, 100), *_warp_kernel_cases(),
+        # the block-per-bin kernel (9 <= M <= 32)
+        (16, 16, 9, 96), (32, 5, 7, 160),
     ],
 )
 def test_update_rows_kernel_matches_plain(cuda, M, N, F, T):
@@ -97,6 +111,53 @@ def test_update_rows_kernel_matches_plain(cuda, M, N, F, T):
     assert tur.update_rows.launches == before + 1  # the plain version never counts
     assert torch.isfinite(W_k).all()
     assert (W_k - W_p).abs().max().item() <= 1e-4 * W_p.abs().max().item()
+
+
+def test_update_rows_kernel_unaligned_input(cuda):
+    """A contiguous X that does not start on a 16-byte boundary takes the
+    8-byte staging copies and gives the same update."""
+    phi, X, Cx, W = _update_state(9, 8, 3, 129, 77, cuda)
+    base = torch.zeros(X.numel() + 1, dtype=X.dtype, device=cuda)
+    base[1:] = X.reshape(-1)
+    X_odd = base[1:].view(X.shape)
+    assert X_odd.is_contiguous() and X_odd.data_ptr() % 16 != 0
+    W_k = tur.update_rows(phi, X_odd, Cx, W, 3)
+    W_p = tur.update_rows_reference(phi, X, Cx, W, 3)
+    assert (W_k - W_p).abs().max().item() <= 1e-4 * W_p.abs().max().item()
+
+
+def _knife_state(M, N, cuda):
+    """Bins 0-3 silent, bins 4-7 rank 1, the rest healthy (F=129, T=77)."""
+    rng = np.random.default_rng(M * 10 + N)
+    T, F = 77, 129
+    X = rng.standard_normal((T, F, M)) + 1j * rng.standard_normal((T, F, M))
+    X[:, :4] = 0
+    X[:, 4:8] = rng.standard_normal((T, 4, 1)) * rng.standard_normal((1, 4, M))
+    X = torch.from_numpy(X.astype(np.complex64)).to(cuda)
+    phi = torch.from_numpy((rng.random((T, N)) + 0.1).astype(np.float32)).to(cuda)
+    W, Cx = core.prepare(X, N, False)
+    return phi, X, Cx.contiguous(), W.contiguous()
+
+
+@pytest.mark.parametrize("M,N", [(8, 3), (4, 4)])
+def test_update_rows_kernel_knife_edge_decisions(cuda, M, N):
+    """Silent and rank-1 bins: the kernel keeps the same rows and zeroes the
+    same OC bins as the plain version, and stays finite."""
+    phi, X, Cx, W = _knife_state(M, N, cuda)
+    W_k = tur.update_rows(phi, X, Cx, W, N)
+    W_p = tur.update_rows_reference(phi, X, Cx, W, N)
+    assert torch.isfinite(W_k).all()
+    kept_k = (W_k[:, :N] == W[:, :N]).all(dim=-1)
+    kept_p = (W_p[:, :N] == W[:, :N]).all(dim=-1)
+    assert torch.equal(kept_k, kept_p)
+    assert kept_k[:4].all()  # silent bins: the previous rows, exactly
+    zero_k = (W_k[:, N:, :N] == 0).flatten(1).all(dim=1)
+    zero_p = (W_p[:, N:, :N] == 0).flatten(1).all(dim=1)
+    assert torch.equal(zero_k, zero_p)
+    if N < M:
+        assert zero_k[:4].all()  # dead OC solve: J = 0
+    healthy = slice(8, None)
+    assert (W_k[healthy] - W_p[healthy]).abs().max().item() <= 1e-4 * W_p.abs().max().item()
 
 
 def test_update_rows_refuses_bad_inputs(cuda):

@@ -1,0 +1,150 @@
+"""PyTorch port: its own copies of the NumPy references, and its import
+boundary.
+
+The port keeps copies of the NumPy-only functions it needs
+(``overiva_tpu_torch/oracle/``, ``overiva_tpu_torch/metrics/``) so that it
+imports nothing of the JAX package. Each copy is held bit for bit
+(``np.array_equal``) against its twin in ``overiva_tpu.oracle`` /
+``overiva_tpu.metrics`` on seeded inputs, and no module of the port, nor
+``chip_smoke.py``, imports ``overiva_tpu``.
+"""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import overiva_tpu.metrics as jmetrics
+import overiva_tpu.oracle as joracle
+import overiva_tpu.oracle.models as jmodels
+import overiva_tpu_torch.metrics as tmetrics
+import overiva_tpu_torch.oracle as toracle
+
+from helpers import make_mixture
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _equal(a, b):
+    if isinstance(a, tuple):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _equal(x, y)
+    else:
+        assert np.array_equal(a, b), (a, b)
+
+
+@pytest.mark.parametrize("nfft,hop", [(512, 256), (256, 64)])
+def test_stft_round_trip_bit_for_bit(nfft, hop):
+    rng = np.random.default_rng(nfft + hop)
+    x = rng.standard_normal((5000, 3))
+    _equal(toracle.hann(nfft), joracle.hann(nfft))
+    _equal(toracle.synthesis_window(toracle.hann(nfft), hop),
+           joracle.synthesis_window(joracle.hann(nfft), hop))
+    xp = toracle.stft_pad(x, nfft, hop)
+    _equal(xp, joracle.stft_pad(x, nfft, hop))
+    X = toracle.analysis(xp, nfft, hop)
+    _equal(X, joracle.analysis(xp, nfft, hop))
+    _equal(toracle.analysis(xp[:, 0], nfft, hop), joracle.analysis(xp[:, 0], nfft, hop))
+    y = toracle.synthesis(X, nfft, hop)
+    _equal(y, joracle.synthesis(X, nfft, hop))
+    np.testing.assert_allclose(y[nfft - hop :][: x.shape[0]], x, atol=1e-10)
+    with pytest.raises(ValueError, match="multiple of hop"):
+        toracle.synthesis_window(toracle.hann(nfft), 3 * hop // 2 + 1)
+
+
+@pytest.mark.parametrize("model", ["laplace", "gauss"])
+def test_activations_and_projection_bit_for_bit(model):
+    rng = np.random.default_rng(12)
+    Y = rng.standard_normal((30, 9, 2)) + 1j * rng.standard_normal((30, 9, 2))
+    Y[:, :, 1] *= 1e-9  # a quiet source: the relative floor bites
+    _equal(toracle.activations(Y, model), joracle.activations(Y, model))
+    ref = rng.standard_normal((30, 9)) + 1j * rng.standard_normal((30, 9))
+    Y[:, 4, 1] = 0.0  # a silent (bin, source): z = 1 there
+    _equal(toracle.projection_back(Y, ref), joracle.projection_back(Y, ref))
+    _equal(toracle.apply_projection_back(Y, ref), joracle.apply_projection_back(Y, ref))
+    E = rng.standard_normal((9, 4, 2)) + 1j * rng.standard_normal((9, 4, 2))
+    _equal(toracle.align_eigvec_phase(E), jmodels.align_eigvec_phase(E))
+    with pytest.raises(ValueError, match="source model"):
+        toracle.activations(Y, "bogus")
+
+
+@pytest.mark.parametrize(
+    "kw", [{}, {"init_eig": True, "model": "gauss"}, {"proj_back": False}]
+)
+def test_overiva_oracle_bit_for_bit(kw):
+    """5 float64 OverIVA iterations at M=4, N=2, with the filters."""
+    rng = np.random.default_rng(4)
+    mix, _, _ = make_mixture(rng, n_src=2, n_mics=4, n_samples=8000)
+    X = joracle.analysis(joracle.stft_pad(mix, 256, 128), 256, 128)
+    got = toracle.overiva(X, n_src=2, n_iter=5, return_filters=True, **kw)
+    want = joracle.overiva(X, n_src=2, n_iter=5, return_filters=True, **kw)
+    _equal(got, want)
+    snaps_t, snaps_j = [], []
+    toracle.overiva(X, n_src=2, n_iter=3, callback=snaps_t.append, callback_every=2)
+    joracle.overiva(X, n_src=2, n_iter=3, callback=snaps_j.append, callback_every=2)
+    _equal(tuple(snaps_t), tuple(snaps_j))
+
+
+def test_bss_eval_sources_bit_for_bit():
+    """A 3-source case, with and without the permutation search."""
+    rng = np.random.default_rng(6)
+    refs = rng.standard_normal((3, 4000))
+    mixing = np.eye(3) + 0.3 * rng.standard_normal((3, 3))
+    ests = (mixing @ refs)[[2, 0, 1]] + 0.05 * rng.standard_normal((3, 4000))
+    got = tmetrics.bss_eval_sources(refs, ests)
+    _equal(got, jmetrics.bss_eval_sources(refs, ests))
+    assert list(got[3]) == [1, 2, 0]  # the permutation is found
+    _equal(tmetrics.bss_eval_sources(refs, ests, compute_permutation=False, filter_length=64),
+           jmetrics.bss_eval_sources(refs, ests, compute_permutation=False, filter_length=64))
+    ev_t = tmetrics.BssEvalReferences(refs, 128)
+    ev_j = jmetrics.BssEvalReferences(refs, 128)
+    _equal(ev_t.evaluate(ests), ev_j.evaluate(ests))
+    with pytest.raises(ValueError, match="non-silent"):
+        tmetrics.bss_eval_sources(np.zeros((2, 100)), np.ones((2, 100)))
+
+
+def _port_sources():
+    files = sorted((REPO / "overiva_tpu_torch").rglob("*.py"))
+    files += [REPO / "chip_smoke.py"]
+    return files
+
+
+def _imported_modules(path):
+    """Every module name an import statement of ``path`` names, with
+    relative imports resolved against the file's package."""
+    rel = path.relative_to(REPO).with_suffix("")
+    package = list(rel.parts[:-1])
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                base = package[: len(package) - node.level + 1]
+                stem = ".".join(base + ([node.module] if node.module else []))
+            else:
+                stem = node.module
+            names.append(stem)
+            names += [f"{stem}.{alias.name}" for alias in node.names]
+        elif (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+              and node.func.id == "__import__" and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            names.append(str(node.args[0].value))
+    return names
+
+
+def test_port_never_imports_the_jax_package():
+    files = _port_sources()
+    assert REPO / "overiva_tpu_torch" / "oracle" / "overiva.py" in files
+    offenders = {}
+    for path in files:
+        bad = [
+            name for name in _imported_modules(path)
+            if name == "overiva_tpu" or name.startswith("overiva_tpu.")
+            or name == "jax" or name.startswith("jax.")
+        ]
+        if bad:
+            offenders[str(path.relative_to(REPO))] = bad
+    assert not offenders, offenders

@@ -82,10 +82,13 @@ def test_api_matches_jax(mixtures, jax_runs, algo, model):
     X22, X52 = mixtures
     Yj, Wj = jax_runs[algo, model]
     if algo == "auxiva":
-        Yt, Wt = tapi.auxiva(X22, n_iter=10, model=model, return_filters=True, dtype=C128)
+        Yt, Wt = tapi.auxiva(
+            X22, n_iter=10, model=model, return_filters=True, dtype=C128, device="cpu"
+        )
     else:
         Yt, Wt = tapi.overiva(
-            X52, n_src=2, n_iter=10, model=model, return_filters=True, dtype=C128
+            X52, n_src=2, n_iter=10, model=model, return_filters=True, dtype=C128,
+            device="cpu",
         )
     assert isinstance(Yt, np.ndarray) and Yt.dtype == C128
     np.testing.assert_allclose(Wt, Wj, rtol=1e-6, atol=1e-8)
@@ -95,7 +98,10 @@ def test_api_matches_jax(mixtures, jax_runs, algo, model):
 def test_init_eig_matches_jax(mixtures, jax_runs):
     _, X52 = mixtures
     Yj, Wj = jax_runs["init_eig"]
-    Yt, Wt = tapi.overiva(X52, n_src=2, n_iter=10, init_eig=True, return_filters=True, dtype=C128)
+    Yt, Wt = tapi.overiva(
+        X52, n_src=2, n_iter=10, init_eig=True, return_filters=True, dtype=C128,
+        device="cpu",
+    )
     np.testing.assert_allclose(Wt, Wj, rtol=1e-6, atol=1e-8)
     np.testing.assert_allclose(Yt, Yj, rtol=1e-6, atol=1e-8)
 
@@ -118,7 +124,9 @@ def test_callback_cadence_and_values(mixtures):
     X22, _ = mixtures
     snaps_o, snaps_t = [], []
     oracle.auxiva(X22, n_iter=21, callback=lambda Y: snaps_o.append(Y.copy()))
-    tapi.auxiva(X22, n_iter=21, callback=snaps_t.append, callback_every=10, dtype=C128)
+    tapi.auxiva(
+        X22, n_iter=21, callback=snaps_t.append, callback_every=10, dtype=C128, device="cpu"
+    )
     assert len(snaps_o) == len(snaps_t) == 3
     for a, b in zip(snaps_o, snaps_t):
         np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-8)
@@ -126,8 +134,8 @@ def test_callback_cadence_and_values(mixtures):
 
 def test_chunked_frames_identical(mixtures):
     _, X52 = mixtures
-    Ya = tapi.overiva(X52, n_src=2, n_iter=6, dtype=C128)
-    Yb = tapi.overiva(X52, n_src=2, n_iter=6, dtype=C128, chunk_frames=32)
+    Ya = tapi.overiva(X52, n_src=2, n_iter=6, dtype=C128, device="cpu")
+    Yb = tapi.overiva(X52, n_src=2, n_iter=6, dtype=C128, chunk_frames=32, device="cpu")
     np.testing.assert_allclose(Yb, Ya, rtol=1e-9, atol=1e-11)
 
 
@@ -148,7 +156,9 @@ def test_same_precision_parity_gate():
         lambda X: oracle.overiva(X.astype(np.complex64), n_src=2, n_iter=20),
         mix, premix, 256,
     )
-    sdr_t, sir_t = _sdr_sir(lambda X: tapi.overiva(X, n_src=2, n_iter=20), mix, premix, 256)
+    sdr_t, sir_t = _sdr_sir(
+        lambda X: tapi.overiva(X, n_src=2, n_iter=20, device="cpu"), mix, premix, 256
+    )
     assert np.max(np.abs(sdr_t - sdr_o)) < 0.02, (sdr_t, sdr_o)
     assert np.max(np.abs(sir_t - sir_o)) < 0.02, (sir_t, sir_o)
     assert np.min(sir_t) > 8.0
@@ -186,7 +196,7 @@ def test_f32x2_tier_is_complex128_of_complex64_input(mixtures):
     out, within 1e-6 max|Y| of the f64 oracle on that input (the gate of
     tests/test_overiva_df.py; the complex64 output rounding is ~6e-8)."""
     _, X52 = mixtures
-    Y = tapi.overiva(X52, n_src=2, n_iter=10, model="gauss", acc="f32x2")
+    Y = tapi.overiva(X52, n_src=2, n_iter=10, model="gauss", acc="f32x2", device="cpu")
     assert Y.dtype == np.complex64
     Yo = oracle.overiva(X52.astype(np.complex64).astype(C128), n_src=2, n_iter=10, model="gauss")
     assert np.abs(Y - Yo).max() / np.abs(Yo).max() < 1e-6
@@ -200,9 +210,9 @@ def test_validation_probes():
         {"acc": "f32x2", "wcov": "bf16"},
     ]:
         with pytest.raises(ValueError):
-            tapi.overiva(X, **kwargs)
+            tapi.overiva(X, **kwargs, device="cpu")
     with pytest.raises(ValueError, match="determined"):
-        tapi.auxiva(X, n_src=2)
+        tapi.auxiva(X, n_src=2, device="cpu")
 
 
 def test_separate_matches_oracle_pipeline():
@@ -217,9 +227,9 @@ def test_separate_matches_oracle_pipeline():
     assert isinstance(yt, torch.Tensor)
     np.testing.assert_allclose(yt.numpy(), y, atol=1e-12)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tapi.separate(mix, n_src=2, algo="iss")
+        tapi.separate(mix, n_src=2, algo="iss", device="cpu")
     with pytest.raises(ValueError, match="unknown algo"):
-        tapi.separate(mix, n_src=2, algo="bogus")
+        tapi.separate(mix, n_src=2, algo="bogus", device="cpu")
 
 
 def test_degenerate_mixture_stays_finite():

@@ -27,8 +27,14 @@ def test_package_never_imports_jax():
         "from overiva_tpu_torch.ops import covariance, linalg, projection, stft\n"
         "from overiva_tpu_torch.ops import update_rows, wcov_packed\n"
         "from overiva_tpu_torch.utils import convert\n"
+        "from overiva_tpu_torch import metrics, oracle\n"
+        "from overiva_tpu_torch.metrics import bss_eval\n"
+        "from overiva_tpu_torch.oracle import models, overiva, projection, stft\n"
         "assert overiva_tpu_torch.overiva is api.overiva\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "jax_pkg = sorted(m for m in sys.modules\n"
+        "                 if m == 'overiva_tpu' or m.startswith('overiva_tpu.'))\n"
+        "assert not jax_pkg, jax_pkg\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
@@ -37,7 +43,7 @@ def test_package_never_imports_jax():
     assert proc.returncode == 0, proc.stderr
 
 
-def test_lazy_exports_and_device_resolution():
+def test_lazy_exports_and_device_resolution(monkeypatch):
     from overiva_tpu_torch import api
 
     for name in ("overiva", "auxiva", "separate", "stft_analysis", "stft_synthesis",
@@ -49,8 +55,48 @@ def test_lazy_exports_and_device_resolution():
     resolve = overiva_tpu_torch.resolve_device
     assert resolve("cpu").type == "cpu"
     assert resolve(None, torch.zeros(1)).type == "cpu"
-    want = "cuda" if torch.cuda.is_available() else "cpu"
-    assert resolve().type == want
+    if torch.cuda.is_available():
+        assert resolve().type == "cuda"
+    # without a card there is no quiet CPU fallback: the caller must ask
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        resolve()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        resolve(None, np.zeros(3))
+    assert resolve("cpu", np.zeros(3)).type == "cpu"
+    assert resolve(None, torch.zeros(1)).type == "cpu"  # a tensor runs where it lies
+
+
+def test_numpy_input_needs_device_without_a_card(monkeypatch):
+    """A NumPy input with no ``device`` raises on a host without CUDA, at
+    every entry point; with ``device="cpu"`` it runs as before."""
+    from overiva_tpu_torch import api
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(3)
+    X = (rng.standard_normal((16, 5, 3)) + 1j * rng.standard_normal((16, 5, 3))).astype(
+        np.complex64
+    )
+    mix = rng.standard_normal((1024, 3))
+    calls = {
+        "overiva": lambda **kw: api.overiva(X, n_src=2, n_iter=2, **kw),
+        "auxiva": lambda **kw: api.auxiva(X, n_iter=2, **kw),
+        "pca": lambda **kw: api.pca(X, 2, **kw),
+        "auxiva_pca": lambda **kw: api.auxiva_pca(X, n_src=2, n_iter=2, **kw),
+        "overiva_batch": lambda **kw: api.overiva_batch(X[None], n_src=2, n_iter=2, **kw),
+        "projection_back": lambda **kw: api.projection_back(X[:, :, :2], X[:, :, 0], **kw),
+        "stft_analysis": lambda **kw: api.stft_analysis(mix, 256, **kw),
+        "stft_analysis_batch": lambda **kw: api.stft_analysis_batch(mix[None], 256, **kw),
+        "stft_synthesis": lambda **kw: api.stft_synthesis(X, 8, **kw),
+        "stft_synthesis_batch": lambda **kw: api.stft_synthesis_batch(X[None], 8, **kw),
+        "separate": lambda **kw: api.separate(mix, n_src=2, nfft=256, n_iter=2, **kw),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+        out = call(device="cpu")
+        assert all(isinstance(o, np.ndarray) and np.isfinite(o).all()
+                   for o in (out if isinstance(out, tuple) else (out,))), name
 
 
 def test_state_conversion_round_trip():
@@ -90,6 +136,46 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
             tur._launch(torch.ones((4, 1)), X, W, W, 1)
     finally:
         _build.library.cache_clear()
+
+
+def test_ptxas_summary():
+    """One line per kernel of an ``-Xptxas -v`` log, template argument kept."""
+    log = (
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123update_rows_warp_"
+        "kernelILi8EEEvPK6float2PKfS3_S3_PS1_iiib' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_123update_rows_warp_kernel\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 127 registers, used 1 barriers, 400 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_Z18wcov_packed_kernelPK13__nv_bfloat16' "
+        "for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z18wcov_packed_kernelPK13__nv_bfloat16\n"
+        "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, 392 bytes cmem[0]\n"
+    )
+    assert _build.ptxas_summary(log) == [
+        "update_rows_warp_kernel<8>: 127 registers, 0 B stack, 0 B spill stores, "
+        "0 B spill loads",
+        "wcov_packed_kernel: 40 registers, 8 B stack, 4 B spill stores, 12 B spill loads",
+    ]
+
+
+def test_chip_smoke_bounds():
+    """The least times ``chip_smoke.py`` reports beside each kernel, from
+    the headline shapes: both are bound by bytes. update_rows' covariances
+    share x x^H across sources over the Hermitian triangle: 576 flops per
+    frame and bin at M=8, N=3."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    ms, by = chip_smoke.update_rows_bound(8, 3, 2049, 128)
+    assert by == "bytes" and 0.00594 < ms < 0.00596
+    ms, by = chip_smoke.update_rows_bound(8, 3, 2049, 512)
+    assert by == "bytes" and 0.02097 < ms < 0.02100
+    ms, by = chip_smoke.wcov_bound(3, 2049, 8, 128)
+    assert by == "bytes" and 0.0034 < ms < 0.0035
 
 
 def test_launch_validation():

@@ -86,4 +86,4 @@ def test_tensor_in_tensor_out(rng):
     y = tapi.stft_synthesis(X, 256)
     assert isinstance(y, torch.Tensor) and y.dtype == torch.float32
     with pytest.raises(ValueError, match="shorter"):
-        tapi.stft_analysis(np.zeros((100, 2)), 256)
+        tapi.stft_analysis(np.zeros((100, 2)), 256, device="cpu")

@@ -109,10 +109,10 @@ def test_bf16pack_scope_guards():
     with pytest.raises(ValueError, match="bf16pack"):
         tcov.weighted_covariance_chunked(Xt, pt[:, 0], wcov="bf16pack")
     with pytest.raises(ValueError, match="bf16pack"):
-        tapi.overiva(X, n_src=2, wcov="bf16pack", chunk_frames=8)
+        tapi.overiva(X, n_src=2, wcov="bf16pack", chunk_frames=8, device="cpu")
     with pytest.raises(ValueError, match="bf16pack"):
         japi.overiva(X, n_src=2, wcov="bf16pack", chunk_frames=8)
-    Y3 = tapi.overiva(X, n_src=2, n_iter=1, wcov="f32x3")
-    np.testing.assert_array_equal(Y3, tapi.overiva(X, n_src=2, n_iter=1))
+    Y3 = tapi.overiva(X, n_src=2, n_iter=1, wcov="f32x3", device="cpu")
+    np.testing.assert_array_equal(Y3, tapi.overiva(X, n_src=2, n_iter=1, device="cpu"))
     with pytest.raises(ValueError, match="wcov"):
-        tapi.overiva(X, n_src=2, wcov="f16")
+        tapi.overiva(X, n_src=2, wcov="f16", device="cpu")
