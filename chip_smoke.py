@@ -9,9 +9,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (``nvidia-smi``) and checks that TF32 is off;
 2. build: compiles ``overiva_tpu_torch/csrc/*.cu`` with nvcc (sm_90a);
 3. kernel: ``wcov_packed`` against its plain PyTorch version on the card, at
-   the main path's shapes and one ragged shape, with times, the time of one
-   library call that computes the same product (complex64 ``torch.matmul``)
-   and the card's least time for the work (``bound_ms``);
+   the main path's shapes and on ragged shapes of both routes (the
+   tensor-core warp kernel for M <= 8, the block kernel for M > 8), with the
+   times of the whole call and of the launch alone, the time of one library
+   call that computes the same product (complex64 ``torch.matmul``) and the
+   card's least time for the work (``bound_ms``);
 3b. fused: ``update_rows`` (the fused per-bin IP update) against its plain
    version at the headline and ragged shapes (F=129, not a multiple of the
    warp kernel's bins per block) and on knife-edge bins, with the kernel,
@@ -111,7 +113,7 @@ def bound(n_bytes, flops, peak_flops):
 
 
 def wcov_bound(K, F, m, T):
-    """bf16 planes in, phi in, f32 planes out; 8 flops per weighted product
+    """bf16 planes in, phi in, complex64 V out; 8 flops per weighted product
     (exact in f32 for bf16 operands, so the bf16 tensor-core rate)."""
     n_bytes = 2 * F * m * T * 2 + T * K * 4 + 2 * K * F * m * m * 4
     flops = 8 * K * F * m * m * T + 2 * K * F * m * T
@@ -206,15 +208,22 @@ def phase_build():
     log(f"[build] {lib.name} in {seconds:.2f} s; " + " | ".join(ptxas))
 
 
+def wcov_route(m):
+    return "tensor cores, a warp per bin" if m <= 8 else "CUDA cores, a block per (bin, source)"
+
+
 def phase_kernel(dev, seed):
     from overiva_tpu_torch.ops.wcov_packed import (
-        pack_planes, wcov_packed, wcov_packed_reference,
+        _launch, pack_planes, wcov_packed, wcov_packed_reference,
     )
 
     rng = np.random.default_rng(seed)
     result = {}
     for K, F, m, T, timed in [
-        (N, 2049, M, 128, True), (N, 2049, M, 512, True), (2, 129, 5, 77, False)
+        (N, 2049, M, 128, True), (N, 2049, M, 512, True), (2, 129, 5, 77, False),
+        (8, 129, 8, 77, False), (2, 129, 12, 77, False),
+        # a long clip: the tensor-core sums stay within tolerance over T
+        (N, 129, M, 4096, False),
     ]:
         X = rng.standard_normal((T, F, m)) + 1j * rng.standard_normal((T, F, m))
         X = torch.from_numpy(X.astype(np.complex64)).to(dev)
@@ -224,16 +233,21 @@ def phase_kernel(dev, seed):
         vr, vi = wcov_packed_reference(*xpack, phi)
         V_plain = torch.complex(vr, vi) / T
         torch.cuda.synchronize()
+        if V.dtype != torch.complex64 or V.shape != (K, F, m, m):
+            raise AssertionError(f"wcov_packed gave {V.dtype} {tuple(V.shape)}")
         err = (V - V_plain).abs().max().item()
         scale = V_plain.abs().max().item()
         line = (
-            f"[kernel] K={K} F={F} M={m} T={T}: max|dV| {err:.3e} = "
+            f"[kernel] K={K} F={F} M={m} T={T} ({wcov_route(m)}): max|dV| {err:.3e} = "
             f"{err / scale:.2e} max|V| (tol {KERNEL_TOL:g})"
         )
         if not err <= KERNEL_TOL * scale:
             raise AssertionError(line)
         if timed:
+            # the whole call, and the launch alone (the kernel writes V / T
+            # itself, so the two differ only on the host)
             ms = cuda_ms(lambda: wcov_packed(xpack, phi, T), queued=True)
+            launch_ms = cuda_ms(lambda: _launch(*xpack, phi, T), queued=True)
             plain_ms = cuda_ms(lambda: torch.complex(*wcov_packed_reference(*xpack, phi)) / T)
             # the library yardstick: one complex64 matmul of the prepared
             # weighted operand (K, F, M, T) by X^H (F, T, M); the port never
@@ -243,14 +257,16 @@ def phase_kernel(dev, seed):
             library_ms = cuda_ms(lambda: torch.matmul(Xw, XH), queued=True)
             bound_ms, bound_by = wcov_bound(K, F, m, T)
             line += (
-                f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library matmul "
-                f"{library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}) = "
-                f"{100 * bound_ms / ms:.1f} % of the kernel (20 runs)"
+                f"; whole call {ms:.4f} ms, launch alone {launch_ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, library matmul {library_ms:.4f} ms, bound "
+                f"{bound_ms * 1e3:.2f} us ({bound_by}) = {100 * bound_ms / ms:.1f} % of "
+                f"the call, {100 * bound_ms / launch_ms:.1f} % of the launch (20 runs)"
             )
             if (K, F, m, T) == (N, 2049, M, 128):
                 result = {
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                    "max_abs_err": err, "ms": ms, "launch_ms": launch_ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": library_ms, "m_route": wcov_route(m),
                 }
         log(line)
     return result

@@ -136,7 +136,7 @@ def library() -> ctypes.CDLL:
     """The built kernel library, loaded once per process."""
     lib = ctypes.CDLL(str(build_library()))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.wcov_packed_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.wcov_packed_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
     lib.wcov_packed_launch.restype = ci
     lib.wcov_packed_error_string.argtypes = [ci]
     lib.wcov_packed_error_string.restype = ctypes.c_char_p

@@ -11,7 +11,9 @@ accumulation, as the Pallas kernel computes them.
 - :func:`wcov_packed_reference` is the plain PyTorch version.
 - :func:`wcov_packed` is the wrapper: the CUDA kernel
   (``csrc/wcov_packed.cu``) for CUDA tensors, the plain version for CPU
-  tensors. On a CUDA tensor it launches the kernel or raises.
+  tensors. On a CUDA tensor it launches the kernel or raises. The kernel
+  writes the complex64 result divided by the frame count itself, so the
+  CUDA path runs one launch and nothing else on the device.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 
 __all__ = ["pack_planes", "wcov_packed", "wcov_packed_reference"]
 
-MAX_THREADS = 1024  # one thread per (m, n) output of a bin
+MAX_THREADS = 1024  # M*M: one thread per (m, n) output on the M > 8 route
 
 
 def pack_planes(X):
@@ -48,7 +50,9 @@ def wcov_packed_reference(xr, xi, phi):
     return mm(wr, ar) + mm(wi, ai), mm(wi, ar) - mm(wr, ai)
 
 
-def _launch(xr, xi, phi):
+def _launch(xr, xi, phi, n_frames: int):
+    """The kernel on CUDA planes: (K, F, M, M) complex64, divided by
+    ``n_frames``."""
     from .._build import library
 
     if xr.dtype != torch.bfloat16 or xi.dtype != torch.bfloat16:
@@ -66,8 +70,11 @@ def _launch(xr, xi, phi):
         raise ValueError(
             f"M*M = {M * M} exceeds the block's {MAX_THREADS} threads"
         )
-    if min(F, M, T, K) < 1 or K > 65535:
-        raise ValueError(f"unsupported shape F={F} M={M} T={T} K={K}")
+    n_frames = int(n_frames)
+    if min(F, M, T, K, n_frames) < 1 or K > 65535:
+        raise ValueError(
+            f"unsupported shape F={F} M={M} T={T} K={K} n_frames={n_frames}"
+        )
     if xi.device != xr.device or phi.device != xr.device:
         raise ValueError(
             f"all inputs must be on one device, got {xr.device}, "
@@ -76,20 +83,19 @@ def _launch(xr, xi, phi):
     if not (xr.is_contiguous() and xi.is_contiguous()):
         raise ValueError("planes must be contiguous")
     phi = phi.to(torch.float32).contiguous()
-    vr = torch.empty((K, F, M, M), dtype=torch.float32, device=xr.device)
-    vi = torch.empty_like(vr)
+    V = torch.empty((K, F, M, M), dtype=torch.complex64, device=xr.device)
     lib = library()
     with torch.cuda.device(xr.device):
         stream = torch.cuda.current_stream(xr.device).cuda_stream
         err = lib.wcov_packed_launch(
-            xr.data_ptr(), xi.data_ptr(), phi.data_ptr(), vr.data_ptr(),
-            vi.data_ptr(), F, M, T, K, stream,
+            xr.data_ptr(), xi.data_ptr(), phi.data_ptr(), V.data_ptr(),
+            F, M, T, K, n_frames, stream,
         )
     if err != 0:
         msg = lib.wcov_packed_error_string(err).decode()
         raise RuntimeError(f"wcov_packed launch failed: {msg} (cuda error {err})")
     wcov_packed.launches += 1
-    return vr, vi
+    return V
 
 
 def wcov_packed(xpack, phi, n_frames: int):
@@ -104,11 +110,10 @@ def wcov_packed(xpack, phi, n_frames: int):
     phi = phi.to(torch.float32)  # the kernel's weights are f32 (as on the TPU)
     if xr.device.type == "cpu":
         vr, vi = wcov_packed_reference(xr, xi, phi)
-    elif xr.device.type == "cuda":
-        vr, vi = _launch(xr, xi, phi)
-    else:
-        raise ValueError(f"wcov_packed runs on cpu or cuda, not {xr.device}")
-    return torch.complex(vr, vi) / n_frames
+        return torch.complex(vr, vi) / n_frames
+    if xr.device.type == "cuda":
+        return _launch(xr, xi, phi, n_frames)
+    raise ValueError(f"wcov_packed runs on cpu or cuda, not {xr.device}")
 
 
 wcov_packed.launches = 0

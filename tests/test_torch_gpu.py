@@ -34,19 +34,56 @@ def _inputs(seed, T, F, M, K):
     return torch.from_numpy(X.astype(np.complex64)), torch.from_numpy(phi.astype(np.float32))
 
 
+def _wcov_cases():
+    """Both routes of the kernel: the tensor-core warp kernel at M in
+    {1, 2, 5, 8} and the block kernel at M in {12, 32}, each with K in
+    {1, 3, 8}; T in {1, 15, 16, 77, 128, 512} and F in {1, 129, 2049} in
+    turn, and every fourth case on planes that start at an odd element
+    offset (2-byte loads)."""
+    cases, i = [], 0
+    for M in (1, 2, 5, 8, 12, 32):
+        for K in (1, 3, 8):
+            T = (1, 15, 16, 77, 128, 512)[(i + i // 6) % 6]
+            F = (1, 129, 2049)[(i + i // 3) % 3] if M <= 8 else (1, 129)[i % 2]
+            cases.append((K, F, M, T, i % 4 == 3))
+            i += 1
+    return cases
+
+
+def _at_odd_offset(plane):
+    """The same values, contiguous, one element into a larger buffer."""
+    buf = torch.zeros(plane.numel() + 1, dtype=plane.dtype, device=plane.device)
+    buf[1:] = plane.reshape(-1)
+    out = buf[1:].view(plane.shape)
+    assert out.is_contiguous() and out.data_ptr() % 4 == 2
+    return out
+
+
 @pytest.mark.parametrize(
-    "K,F,M,T", [(3, 2049, 8, 128), (3, 2049, 8, 512), (2, 129, 5, 77), (1, 3, 32, 200)]
+    "K,F,M,T,odd",
+    [
+        (3, 2049, 8, 128, False), (3, 2049, 8, 512, False), (2, 129, 5, 77, False),
+        (1, 3, 32, 200, False), (3, 2049, 8, 128, True), *_wcov_cases(),
+        # two source groups (K > 8), several staged tiles of phi, and a
+        # long clip (the tensor cores' truncating sums are flushed often)
+        (10, 129, 8, 1100, False), (10, 7, 3, 600, True), (3, 129, 8, 4096, False),
+        (8, 7, 8, 4096, True),
+    ],
 )
-def test_kernel_matches_plain(cuda, K, F, M, T):
-    """Same bf16 operands, f32 accumulation in another order: 1e-5 max|V|."""
-    X, phi = _inputs(F + T, T, F, M, K)
-    xpack = twp.pack_planes(X.to(cuda))
+def test_kernel_matches_plain(cuda, K, F, M, T, odd):
+    """Same bf16 operands, f32 accumulation in another order: 1e-5 max|V|.
+    One launch a call, complex64 (K, F, M, M) divided by T."""
+    X, phi = _inputs(F + T + M, T, F, M, K)
+    xr, xi = twp.pack_planes(X.to(cuda))
+    if odd:
+        xr, xi = _at_odd_offset(xr), _at_odd_offset(xi)
     phic = phi.to(cuda)
     before = twp.wcov_packed.launches
-    V = twp.wcov_packed(xpack, phic, T)
+    V = twp.wcov_packed((xr, xi), phic, T)
     torch.cuda.synchronize()
     assert twp.wcov_packed.launches == before + 1
-    V_plain = torch.complex(*twp.wcov_packed_reference(*xpack, phic)) / T
+    assert V.dtype == torch.complex64 and V.shape == (K, F, M, M)
+    V_plain = torch.complex(*twp.wcov_packed_reference(xr, xi, phic)) / T
     scale = V_plain.abs().max().item()
     assert (V - V_plain).abs().max().item() <= 1e-5 * scale
     # the plain version on the card equals the one on the CPU up to order
@@ -64,6 +101,8 @@ def test_kernel_refuses_bad_inputs(cuda):
         twp.wcov_packed((xr.transpose(0, 1), xi.transpose(0, 1)), phic, 16)
     with pytest.raises(ValueError, match="one device"):
         twp.wcov_packed((xr, xi), phi, 16)
+    with pytest.raises(ValueError, match="n_frames"):
+        twp.wcov_packed((xr, xi), phic, 0)
     big = torch.zeros((2, 33, 4), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="threads"):
         twp.wcov_packed((big, big), torch.ones((4, 1), device=cuda), 4)

@@ -129,7 +129,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
             _build.build_library()
         xr = torch.zeros((3, 2, 4), dtype=torch.bfloat16)
         with pytest.raises(RuntimeError, match="nvcc not found"):
-            twp._launch(xr, xr.clone(), torch.ones((4, 1)))
+            twp._launch(xr, xr.clone(), torch.ones((4, 1)), 4)
         X = torch.zeros((4, 3, 2), dtype=torch.complex64)
         W = torch.zeros((3, 2, 2), dtype=torch.complex64)
         with pytest.raises(RuntimeError, match="nvcc not found"):
@@ -139,9 +139,16 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_ptxas_summary():
-    """One line per kernel of an ``-Xptxas -v`` log, template argument kept."""
+    """One line per kernel of an ``-Xptxas -v`` log, template argument kept:
+    the instances of a template (one a source count for ``wcov_tc_kernel``)
+    are told apart."""
     log = (
         "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114wcov_tc_kernelILi3EEEv"
+        "PK13__nv_bfloat16S3_PKfP6float2iiiifb' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_114wcov_tc_kernelILi3EEEv\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 106 registers, used 1 barriers, 3072 bytes smem\n"
         "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123update_rows_warp_"
         "kernelILi8EEEvPK6float2PKfS3_S3_PS1_iiib' for 'sm_90a'\n"
         "ptxas info    : Function properties for _ZN12_GLOBAL__N_123update_rows_warp_kernel\n"
@@ -154,6 +161,7 @@ def test_ptxas_summary():
         "ptxas info    : Used 40 registers, 392 bytes cmem[0]\n"
     )
     assert _build.ptxas_summary(log) == [
+        "wcov_tc_kernel<3>: 106 registers, 0 B stack, 0 B spill stores, 0 B spill loads",
         "update_rows_warp_kernel<8>: 127 registers, 0 B stack, 0 B spill stores, "
         "0 B spill loads",
         "wcov_packed_kernel: 40 registers, 8 B stack, 4 B spill stores, 12 B spill loads",
@@ -184,13 +192,15 @@ def test_launch_validation():
     xr = torch.zeros((3, 2, 4), dtype=torch.bfloat16)
     phi = torch.ones((4, 1))
     with pytest.raises(ValueError, match="bfloat16"):
-        twp._launch(xr.float(), xr.float(), phi)
+        twp._launch(xr.float(), xr.float(), phi, 4)
     with pytest.raises(ValueError, match="phi"):
-        twp._launch(xr, xr, torch.ones((5, 1)))
+        twp._launch(xr, xr, torch.ones((5, 1)), 4)
     big = torch.zeros((1, 33, 4), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="threads"):
-        twp._launch(big, big, phi)
+        twp._launch(big, big, phi, 4)
     with pytest.raises(ValueError, match="contiguous"):
-        twp._launch(xr.transpose(0, 1), xr.transpose(0, 1), torch.ones((4, 1)))
+        twp._launch(xr.transpose(0, 1), xr.transpose(0, 1), torch.ones((4, 1)), 4)
+    with pytest.raises(ValueError, match="n_frames"):
+        twp._launch(xr, xr, phi, 0)
     with pytest.raises(ValueError, match="cpu or cuda"):
         twp.wcov_packed((xr.to("meta"), xr.to("meta")), phi.to("meta"), 4)

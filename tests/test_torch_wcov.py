@@ -30,10 +30,17 @@ def _inputs(seed, T, F, M, K, dtype=np.complex64):
     return X, phi
 
 
-@pytest.mark.parametrize("m", [4, 8])
-@pytest.mark.parametrize("f", [40, 129])
-def test_wcov_packed_matches_pallas_interpret(m, f):
-    T, K = 64, 3
+@pytest.mark.parametrize(
+    "f,m,K,T",
+    [
+        (40, 4, 3, 64), (40, 8, 3, 64), (129, 4, 3, 64), (129, 8, 3, 64),
+        # the shapes the CUDA kernel's tensor-core route takes at its edges:
+        # all 8 sources in one pass with a ragged T, and one source at M=2
+        (129, 8, 8, 77), (40, 2, 1, 16),
+    ],
+    ids=["40-4", "40-8", "129-4", "129-8", "K8-M8-T77", "K1-M2-T16"],
+)
+def test_wcov_packed_matches_pallas_interpret(f, m, K, T):
     X, phi = _inputs(3, T, f, m, K)
     Vj = np.asarray(
         jwcov_packed(jpack(jnp.asarray(X)), jnp.asarray(phi), f, T, interpret=True)
