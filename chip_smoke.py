@@ -27,7 +27,22 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    fused kernel) on phase 5's STFT, with the launch count, the same
    SDR/SIR gate against the oracle, and its time beside phase 5's;
 6. requests: three mixtures of different lengths through
-   ``separate(algo="ip")``.
+   ``separate(algo="ip")``;
+7. families: on phase 5's mixture, OverIVA-ISS, OverIVA-IP2, FIVE and
+   OGIVE in complex128 on the card against the float64 oracles element by
+   element (the JAX package's tolerances), in complex64 through iSTFT and
+   bss_eval (ISS and OGIVE gated at 0.1 dB, IP2 and FIVE printed: their
+   complex64 floors are the reference's own), ``wcov_packed`` in the loops
+   of OverIVA-IP2 (K = 3) and AuxIVA-IP2 (K = 8), one launch an epoch,
+   within 0.3 dB mean SIR of the f32 run (OverIVA-IP2) or of the plain
+   bf16 tier (AuxIVA-IP2, f32 printed), OGIVE's early exit at
+   complex128 (at a tolerance read off the c128 trajectory of its
+   criterion, so that it stops inside the run: the oracle stops before the
+   last callback chunk, the port at the oracle's epoch and after as many
+   callback chunks; the default complex64 run's epochs and host reads of
+   ``done`` are printed), each family's time
+   with its device ops an epoch and busy share (torch.profiler), and
+   ``separate(algo="iss"|"ip2")`` at three lengths.
 
 The second-to-last line is a JSON object of the kernels, the last line
 ``{"ok": true, "device": {...}}``. The float64 oracle and bss_eval are the
@@ -222,6 +237,8 @@ def phase_kernel(dev, seed):
     for K, F, m, T, timed in [
         (N, 2049, M, 128, True), (N, 2049, M, 512, True), (2, 129, 5, 77, False),
         (8, 129, 8, 77, False), (2, 129, 12, 77, False),
+        # AuxIVA-IP2's shape at the headline: K = M = 8, 16-byte loads
+        (M, 2049, M, 128, False),
         # a long clip: the tensor-core sums stay within tolerance over T
         (N, 129, M, 4096, False),
     ]:
@@ -528,20 +545,309 @@ def phase_fused_run(dev, mix, images, main):
     return launches
 
 
-def phase_requests(dev, seed):
+def score_one(y, images, mix):
+    """One extracted output, scored as examples/parity_check.py scores it:
+    against the source it matches best, the rest of the mixture as the
+    interference."""
+    from overiva_tpu_torch.metrics import bss_eval_sources
+
+    y = np.asarray(y)[:, 0]
+    refs = images[:, :, 0]
+    best = max(range(refs.shape[0]), key=lambda j: abs(np.dot(refs[j], y)))
+    pair = np.stack([refs[best], refs.sum(0) - refs[best]])
+    est = np.stack([y, mix[:, 0] - y])
+    sdr, sir, _, _ = bss_eval_sources(pair, est, compute_permutation=False)
+    return sdr[:1], sir[:1]
+
+
+def score_picked(y, images):
+    """A determined run's outputs outnumber the sources: each reference is
+    scored against the output that correlates best with it (normalised)."""
+    from overiva_tpu_torch.metrics import bss_eval_sources
+
+    refs, y = images[:, :, 0], np.asarray(y)
+    corr = np.abs(refs @ y) / np.outer(np.linalg.norm(refs, axis=1), np.linalg.norm(y, axis=0))
+    sdr, sir, _, _ = bss_eval_sources(refs, y[:, corr.argmax(axis=1)].T)
+    return sdr, sir
+
+
+def ogive_exit_tol(X, cap, every):
+    """(update, step size, tolerance, epoch): settings at which OGIVE stops
+    at an epoch after the first callback chunk and before the last, read
+    off the c128 trajectory of its criterion, crit_t = step * max_f
+    ||step_f|| / ||w_f||: the move of w (demix update) or of a (mix
+    update) over ||w_t||. The run stops at the first t with crit_t < tol,
+    so a tolerance between a new low of crit and the low before it stops
+    exactly there; the widest such gap is taken, so that rounding cannot
+    move the stop. The settings of OGIVE_SETTINGS are tried in turn; if
+    none makes a new low after the first chunk, the first one's stop at
+    its first epoch is returned."""
+    from overiva_tpu_torch import api
+    from overiva_tpu_torch.models import ogive as ogive_mod
+
+    found = []
+    for update, step in OGIVE_SETTINGS:
+        w, a, use_mix, Cx, Cx_inv, epoch, done, mu, tolt = api._ogive_start(X, step, 0.0, False, 1)
+        crit = []
+        for _ in range(cap - every):
+            w_new, a_new, use_mix, epoch, done = ogive_mod._epoch(
+                X, w, a, use_mix, Cx, Cx_inv, epoch, done, mu, tolt, "laplace", update, 10, 1)
+            if update == "switching":  # each bin's own update
+                moved = torch.where(use_mix[:, None], a_new - a, w_new - w)
+            else:
+                moved = a_new - a if update == "mix" else w_new - w
+            crit.append(torch.amax(torch.linalg.vector_norm(moved, dim=1)
+                                   / torch.linalg.vector_norm(w_new, dim=1)))
+            w, a = w_new, a_new
+        crit = torch.stack(crit).cpu().numpy()
+        stops = [(1, np.inf, 2.0 * crit[0])]  # (epoch, gap, tolerance)
+        low = crit[0]
+        for t in range(2, len(crit) + 1):
+            if crit[t - 1] < low:
+                stops.append((t, low / crit[t - 1], float(np.sqrt(low * crit[t - 1]))))
+                low = crit[t - 1]
+        t, _, tol = max(stops, key=lambda s: (s[0] > every, s[1]))
+        found.append((update, step, tol, t))
+        if t > every:
+            break
+    return max(found, key=lambda f: f[3] > every)  # the first with a late stop
+
+
+def device_profile(fn):
+    """(device ops, device-busy ms) of one synchronised call of ``fn`` under
+    torch.profiler, counting the CUDA entries only (a CPU op's entry
+    repeats the device time of the kernels it launched)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.count for e in evs), sum(e.self_device_time_total for e in evs) / 1e3
+
+
+# phase 7's c128 rows: (entry point, arguments, rtol, atol), the JAX
+# package's own tolerances against the f64 oracle (tests/test_overiva_iss.py,
+# tests/test_ip2.py, tests/test_five.py, tests/test_jax_parity.py)
+FAMILY_C128 = [
+    ("overiva_iss", {"n_src": N, "n_iter": 10}, 1e-6, 1e-8),
+    ("overiva_ip2", {"n_src": N, "n_iter": 5}, 1e-6, 1e-8),
+    ("five", {"n_iter": 5}, 1e-4, 1e-6),
+    ("ogive", {"n_iter": 60, "step_size": 0.05, "tol": 0.0}, 1e-5, 1e-7),
+]
+# OGIVE's early-exit gate: epochs at most, the callback cadence, and the
+# (update, step size) settings tried in turn for a stop inside the run
+OGIVE_CAP, OGIVE_EVERY = 500, 50
+OGIVE_SETTINGS = (("demix", 0.1), ("demix", 0.05), ("mix", 0.1), ("switching", 0.1))
+
+
+def phase_families(dev, mix, images, X64, main):
+    """The ISS, IP2, FIVE and OGIVE families on phase 5's mixture: c128
+    trajectories and c64 quality against the f64 oracle copies, the packed
+    kernel inside IP2's loop, OGIVE's early exit, and times."""
+    from overiva_tpu_torch import api, oracle
+    from overiva_tpu_torch.models import ogive as ogive_mod
+    from overiva_tpu_torch.ops.update_rows import update_rows
+    from overiva_tpu_torch.ops.wcov_packed import wcov_packed
+
+    n = mix.shape[0]
+    start = NFFT - HOP
+    X128 = torch.from_numpy(X64).to(dev)
+
+    # --- c128 on the card against the f64 oracle, element-wise
+    for name, kw, rtol, atol in FAMILY_C128:
+        t0 = time.perf_counter()
+        Y = getattr(api, name)(X128, dtype=torch.complex128, **kw).cpu().numpy()
+        t_port = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        Yo = getattr(oracle, name)(X64, **kw)
+        t_oracle = time.perf_counter() - t0
+        outside = int(np.sum(np.abs(Y - Yo) > atol + rtol * np.abs(Yo)))
+        line = (
+            f"[families] c128 {name} {kw} vs f64 oracle: max|dY| "
+            f"{np.abs(Y - Yo).max():.3e} = {np.abs(Y - Yo).max() / np.abs(Yo).max():.2e} "
+            f"max|Y|, {outside} of {Y.size} elements outside rtol {rtol:g} atol {atol:g}; "
+            f"port {t_port:.2f} s, oracle {t_oracle:.2f} s"
+        )
+        if Y.shape != Yo.shape or outside:
+            raise AssertionError(line)
+        log(line)
+
+    # --- c64 quality through iSTFT and bss_eval
+    x = torch.from_numpy(oracle.stft_pad(mix, NFFT, HOP)).to(dev)
+    X = api.stft_analysis(x, NFFT, device=dev)
+
+    def synth(Y):
+        return api.stft_synthesis(Y, NFFT, device=dev)[start : start + n].cpu().numpy()
+
+    def oracle_synth(Y):
+        return oracle.synthesis(Y, NFFT, HOP)[start : start + n]
+
+    quality = {}
+    for name, kw, one, gated in [
+        ("overiva_iss", {"n_src": N, "n_iter": 30}, False, True),
+        ("ogive", {"n_iter": 60, "step_size": 0.05, "tol": 0.0}, True, True),
+        ("overiva_ip2", {"n_src": N, "n_iter": 10}, False, False),
+        ("five", {"n_iter": 10}, True, False),
+    ]:
+        y = synth(getattr(api, name)(X, **kw))
+        yo = oracle_synth(getattr(oracle, name)(X64, **kw))
+        if not np.isfinite(y).all():
+            raise AssertionError(f"non-finite {name} output")
+        sdr, sir = score_one(y, images, mix) if one else score(y, images, n)
+        sdr_o, sir_o = score_one(yo, images, mix) if one else score(yo, images, n)
+        d_sdr, d_sir = np.abs(sdr - sdr_o).max(), np.abs(sir - sir_o).max()
+        quality[name] = (sdr, sir)
+        line = (
+            f"[families] c64 {name} {kw}: SDR {np.round(sdr, 3)} SIR {np.round(sir, 3)}, "
+            f"oracle SDR {np.round(sdr_o, 3)} SIR {np.round(sir_o, 3)}; max|dSDR| "
+            f"{d_sdr:.4f} dB, max|dSIR| {d_sir:.4f} dB "
+            + ("(tol 0.1)" if gated else "(printed only: a c64 floor of the reference, PARITY.md)")
+        )
+        if gated and not (d_sdr < 0.1 and d_sir < 0.1):
+            raise AssertionError(line)
+        log(line)
+
+    # --- the packed kernel in IP2's loop: one launch an epoch, K = n_src,
+    # then K = M = 8 for AuxIVA-IP2; each count zeroed just before its run
+    def counted(fn):
+        wcov_packed.launches = 0
+        update_rows.launches = 0
+        Y = fn()
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(Y).all()):
+            raise AssertionError("non-finite IP2 output")
+        return Y, wcov_packed.launches, update_rows.launches
+
+    X8 = X[:, :, :8]
+    runs = {
+        "overiva_ip2_f32": lambda: api.overiva_ip2(X, n_src=N, n_iter=10, device=dev),
+        "overiva_ip2_bf16pack": lambda: api.overiva_ip2(
+            X, n_src=N, n_iter=10, wcov="bf16pack", device=dev),
+        "auxiva_ip2_f32": lambda: api.auxiva_ip2(X8, n_iter=5, device=dev),
+        "auxiva_ip2_bf16": lambda: api.auxiva_ip2(X8, n_iter=5, wcov="bf16", device=dev),
+        "auxiva_ip2_bf16pack": lambda: api.auxiva_ip2(X8, n_iter=5, wcov="bf16pack", device=dev),
+    }
+    want = {"overiva_ip2_f32": 0, "overiva_ip2_bf16pack": 10, "auxiva_ip2_f32": 0,
+            "auxiva_ip2_bf16": 0, "auxiva_ip2_bf16pack": 5}
+    outs, ip2_launches = {}, {}
+    for name, fn in runs.items():
+        outs[name], ip2_launches[name], fused = counted(fn)
+        line = (
+            f"[families] {name}: launches of wcov_packed {ip2_launches[name]} "
+            f"(want {want[name]}), of update_rows {fused} (want 0)"
+        )
+        if (ip2_launches[name], fused) != (want[name], 0):
+            raise AssertionError(line)
+        log(line)
+    # bf16pack within 0.3 dB mean SIR (the JAX package's bf16 gate) of f32
+    # for OverIVA-IP2; for AuxIVA-IP2, whose 8 outputs at ~35 dB SIR sit
+    # below the bf16 tier's own floor, of the plain bf16 tier (the same
+    # numerics without the kernel), with f32 printed beside it
+    sirs = {
+        name: (score(synth(Y), images, n) if name.startswith("overiva")
+               else score_picked(synth(Y), images))[1]
+        for name, Y in outs.items()
+    }
+    for prefix, base, n_it in [("overiva_ip2", "f32", 10), ("auxiva_ip2", "bf16", 5)]:
+        sir_pk = sirs[f"{prefix}_bf16pack"]
+        others = [t for t in ("f32", "bf16") if f"{prefix}_{t}" in sirs]
+        d = {t: abs(sir_pk.mean() - sirs[f"{prefix}_{t}"].mean()) for t in others}
+        line = (
+            f"[families] {prefix} {n_it} it SIR bf16pack {np.round(sir_pk, 3)}, "
+            + ", ".join(f"{t} {np.round(sirs[f'{prefix}_{t}'], 3)}" for t in others)
+            + "; mean SIR of bf16pack differs from "
+            + ", ".join(f"{t} by {d[t]:.4f} dB" for t in others)
+            + f" (tol 0.3 against {base})"
+        )
+        if not d[base] < 0.3:
+            raise AssertionError(line)
+        log(line)
+
+    # --- OGIVE's early exit at c128, at a tolerance where it stops inside
+    # the run: the oracle must stop before the last callback chunk, and the
+    # port at the oracle's epoch (ogive_batch's count) and after as many
+    # callback chunks (the JAX package's gate)
+    update, step, tol, e_aim = ogive_exit_tol(X128, OGIVE_CAP, OGIVE_EVERY)
+    kw = {"n_iter": OGIVE_CAP, "step_size": step, "tol": tol, "update": update}
+    epochs_o = []  # a callback every epoch counts the oracle's epochs
+    Yo = oracle.ogive(X64, callback=lambda Y: epochs_o.append(1), callback_every=1, **kw)
+    if len(epochs_o) > OGIVE_CAP - OGIVE_EVERY:
+        raise AssertionError(
+            f"the oracle's OGIVE runs past {OGIVE_CAP - OGIVE_EVERY} epochs at {kw} "
+            f"(aimed at epoch {e_aim}): no early exit to check"
+        )
+    chunks_t = []
+    api.ogive(X128, callback=lambda Y: chunks_t.append(1), callback_every=OGIVE_EVERY,
+              dtype=torch.complex128, **kw)
+    Yb, epochs_t = api.ogive_batch(X128[None], return_epochs=True, dtype=torch.complex128, **kw)
+    chunks_o = -(-len(epochs_o) // OGIVE_EVERY)
+    d_y = np.abs(Yb[0].cpu().numpy() - Yo).max() / np.abs(Yo).max()
+    line = (
+        f"[families] ogive c128 n_iter={OGIVE_CAP} update {update!r} step {step:g} "
+        f"tol={tol:.6g} (aimed at epoch {e_aim}): "
+        f"the oracle stops after "
+        f"{len(epochs_o)} epochs, the port after {int(epochs_t[0])}; callback chunks "
+        f"(callback_every={OGIVE_EVERY}) {len(chunks_t)}, oracle {chunks_o} (cap "
+        f"{OGIVE_CAP // OGIVE_EVERY}); max|dY| / max|Y| at the stop {d_y:.2e} (printed)"
+    )
+    if int(epochs_t[0]) != len(epochs_o) or len(chunks_t) != chunks_o:
+        raise AssertionError(line)
+    log(line)
+    # the default complex64 run: its epochs and host reads of done
+    ogive_mod.ogive_iterations.done_reads = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Yog, epochs = api.ogive_batch(X[None], return_epochs=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(
+        f"[families] ogive c64 defaults (n_iter=4000, step 0.1, tol 1e-3): "
+        f"{int(epochs[0])} epochs, {ogive_mod.ogive_iterations.done_reads} host reads of "
+        f"done (chunks of {ogive_mod.CHUNK}), {wall * 1e3:.2f} ms wall, finite "
+        f"{bool(torch.isfinite(Yog).all())} (information only)"
+    )
+
+    # --- times, device ops per epoch and device-busy share
+    runs = [
+        ("overiva_iss", 30, lambda k: api.overiva_iss(X, n_src=N, n_iter=k)),
+        ("overiva_ip2", 10, lambda k: api.overiva_ip2(X, n_src=N, n_iter=k)),
+        ("overiva_ip2 bf16pack", 10,
+         lambda k: api.overiva_ip2(X, n_src=N, n_iter=k, wcov="bf16pack")),
+        ("five", 10, lambda k: api.five(X, n_iter=k)),
+        ("ogive (tol 0)", 200, lambda k: api.ogive(X, n_iter=k, tol=0.0)),
+    ]
+    times = {}
+    for name, k, fn in runs:
+        t = best_wall_s(lambda: fn(k))
+        ops_k, busy = device_profile(lambda: fn(k))
+        ops_0, _ = device_profile(lambda: fn(0))
+        times[name] = t
+        log(
+            f"[families] {name} {k} it (T={X.shape[0]}, F={X.shape[1]}, M={M}, c64): "
+            f"{t * 1e3:.2f} ms best of 3 "
+            f"= {k / t:.1f} it/s, {t * 1e3 / k:.3f} ms an epoch; device ops an epoch "
+            f"{(ops_k - ops_0) / k:.1f}; device busy (profiler) {busy:.2f} ms = "
+            f"{100 * busy / (t * 1e3):.1f} % of the best wall; api.overiva 30 it "
+            f"{main['eager_s'] * 1e3:.2f} ms"
+        )
+    return ip2_launches
+
+
+def phase_requests(dev, seed, algo="ip", n_iter=30, tag="requests"):
     from overiva_tpu_torch import api
 
     rng = np.random.default_rng(seed + 1)
     clips = [make_mixture(rng, N, M, samples_for_frames(f))[0] for f in (64, 128, 256)]
-    api.separate(clips[0], n_src=N, n_iter=30, device=dev)  # warm-up
+    api.separate(clips[0], n_src=N, n_iter=n_iter, algo=algo, device=dev)  # warm-up
     for clip in clips:
         t0 = time.perf_counter()
-        y = api.separate(clip, n_src=N, n_iter=30, device=dev)
+        y = api.separate(clip, n_src=N, n_iter=n_iter, algo=algo, device=dev)
         ms = (time.perf_counter() - t0) * 1e3
         if y.shape != (clip.shape[0], N) or not np.isfinite(y).all():
             raise AssertionError(f"bad separate output {y.shape}")
         log(
-            f"[requests] separate(algo='ip', 30 it) {clip.shape[0]} samples x "
+            f"[{tag}] separate(algo={algo!r}, {n_iter} it) {clip.shape[0]} samples x "
             f"{M} mics ({clip.shape[0] // HOP + 1} frames): {ms:.1f} ms, "
             "numpy in and out"
         )
@@ -551,6 +857,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     seed = parser.parse_args().seed
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     from overiva_tpu_torch import oracle
@@ -567,6 +874,9 @@ def main():
     main_path = phase_main_path(dev, mix, images, X64)
     fused_launches = phase_fused_run(dev, mix, images, main_path)
     phase_requests(dev, seed)
+    ip2_launches = phase_families(dev, mix, images, X64, main_path)
+    phase_requests(dev, seed, "iss", 30, "families")
+    phase_requests(dev, seed, "ip2", 10, "families")
 
     loaded = sorted(
         m for m in sys.modules
@@ -574,6 +884,7 @@ def main():
     )
     if loaded:
         raise AssertionError(f"JAX or the JAX package was imported: {loaded}")
+    log(f"[done] chip_smoke.py wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "wcov_packed",
         "route": "cuda",
@@ -581,6 +892,7 @@ def main():
         "replaces": "overiva_tpu/ops/pallas_wcov.py:103",
         "launches": main_path["launches"],
         **kernel,
+        "ip2_launches": ip2_launches,
     }, {
         "name": "update_rows",
         "route": "cuda",

@@ -1,15 +1,20 @@
-"""Public API: the OverIVA/AuxIVA main path, NumPy or tensors in and out.
+"""Public API: the IP family, NumPy or tensors in and out.
 
-Counterpart of the main-path slice of ``overiva_tpu/api.py``, with the same
-signatures and validation plus ``device=``:
+Counterpart of the IP-family slice of ``overiva_tpu/api.py``, with the
+same signatures and validation plus ``device=``:
 
     stft_analysis(x, nfft) -> X            (n_frames, n_freq, n_chan)
     overiva(X, n_src, ...) -> Y [, W_hat]  (n_frames, n_freq, n_src)
     auxiva(X, ...), projection_back(Y, ref), stft_synthesis(Y, nfft)
-    pca(X, n_src), auxiva_pca(X, n_src, inner="ip")
-    separate(mix, n_src, algo="ip")        samples in, samples out
-    stft_analysis_batch, overiva_batch, stft_synthesis_batch
-                                           a leading batch axis, written out
+    auxiva_iss, overiva_iss                iterative source steering
+    overiva_ip2, auxiva_ip2                pairwise updates (n_src >= 2)
+    ogive, five                            one source extracted
+    pca(X, n_src), auxiva_pca(X, n_src, inner="ip"|"iss"|"ip2")
+    separate(mix, n_src, algo="ip"|"iss"|"ip2")
+                                           samples in, samples out
+    stft_analysis_batch, stft_synthesis_batch, overiva_batch,
+    auxiva_iss_batch, overiva_iss_batch, overiva_ip2_batch, ogive_batch,
+    five_batch, auxiva_pca_batch           a leading batch axis, written out
 
 A NumPy input gives a NumPy output; a tensor input gives a tensor on the
 device the work ran on. ``device`` defaults to the input tensor's device,
@@ -24,7 +29,10 @@ import torch
 
 from . import resolve_device
 from .models import auxiva_pca as _pca
+from .models import five as _five
+from .models import ogive as _ogive
 from .models import overiva as _core
+from .models.family import FAMILIES, chunked, run_family
 from .models.source_models import MODELS
 from .ops import projection as _proj
 from .ops import stft as _stft
@@ -33,9 +41,21 @@ from .utils.convert import as_tensor, to_torch_dtype
 
 __all__ = [
     "auxiva",
+    "auxiva_ip2",
+    "auxiva_iss",
+    "auxiva_iss_batch",
     "auxiva_pca",
+    "auxiva_pca_batch",
+    "five",
+    "five_batch",
+    "ogive",
+    "ogive_batch",
     "overiva",
     "overiva_batch",
+    "overiva_ip2",
+    "overiva_ip2_batch",
+    "overiva_iss",
+    "overiva_iss_batch",
     "pca",
     "projection_back",
     "separate",
@@ -49,9 +69,9 @@ DEFAULT_DTYPE = torch.complex64
 # the other algorithms of overiva_tpu.api.separate, and the ROADMAP.md
 # Queue 1 item that ports each
 _UNPORTED_ALGOS = {
-    "iss": 11, "ip2": 11, "fastmnmf": 13, "fastmnmf2": 13,
-    "tiss": 14, "tip": 14, "ilrma_t": 14,
+    "fastmnmf": 13, "fastmnmf2": 13, "tiss": 14, "tip": 14, "ilrma_t": 14,
 }
+_OGIVE_UPDATES = ("demix", "mix", "switching")
 
 
 def _output(t, numpy_in: bool):
@@ -61,6 +81,74 @@ def _output(t, numpy_in: bool):
 def _check_model(model):
     if model not in MODELS:
         raise ValueError(f"unknown source model {model!r}; use one of {MODELS}")
+
+
+def _check_wcov(wcov):
+    if str(wcov) not in WCOV_MODES:
+        raise ValueError(f"wcov must be one of {WCOV_MODES}, got {wcov!r}")
+
+
+def _check_batch(X, name):
+    if X.ndim != 4:
+        raise ValueError(f"{name} expects (B, T, F, M); got shape {tuple(X.shape)}")
+
+
+def _n_src(n_src, M, low=1):
+    N = M if n_src is None else int(n_src)
+    if not low <= N <= M:
+        raise ValueError(
+            f"IP2 needs 2 <= n_src <= n_chan, got {N}" if low == 2
+            else "need 1 <= n_src <= n_chan"
+        )
+    return N
+
+
+def _setup(X, dtype, device):
+    """(NumPy in?, complex dtype, X as a tensor on the resolved device)."""
+    cdtype = to_torch_dtype(dtype or DEFAULT_DTYPE)
+    return not isinstance(X, torch.Tensor), cdtype, as_tensor(X, cdtype, resolve_device(device, X))
+
+
+def _finish(Y, X, scaled, numpy_in, out_dtype=None):
+    """Outputs Y, projection-back-scaled against mic 0 of X when
+    ``scaled``, then cast to ``out_dtype``; NumPy for a NumPy input."""
+    if scaled:
+        Y = _proj.apply_projection_back(Y, X[:, :, 0])
+    return _output(Y if out_dtype is None else Y.to(out_dtype), numpy_in)
+
+
+def _check_algo(algo, what):
+    if algo not in FAMILIES:
+        raise ValueError(f"unknown {what} {algo!r}; use 'ip', 'iss' or 'ip2'")
+
+
+def _scaled_callback(callback, X, numpy_in, out_dtype=None):
+    """The user's callback on projection-back-scaled outputs (against mic 0
+    of X), NumPy for a NumPy input; None stays None."""
+    if callback is None:
+        return None
+
+    def cb(Y):
+        callback(_finish(Y, X, True, numpy_in, out_dtype))
+
+    return cb
+
+
+def _run(X, N, n_iter, algo, model, proj_back, return_filters, callback,
+         callback_every, numpy_in, out_dtype=None, **opts):
+    """A single-clip entry point's run of ``algo`` through
+    :func:`run_family`: outputs scaled when ``proj_back``, cast to
+    ``out_dtype`` and returned as NumPy for a NumPy input, with W when
+    ``return_filters``."""
+    Y, W = run_family(
+        X, N, int(n_iter), model, algo, n_mix=1,
+        callback=_scaled_callback(callback, X, numpy_in, out_dtype),
+        callback_every=callback_every, **opts,
+    )
+    Y = _finish(Y, X, bool(proj_back), numpy_in, out_dtype)
+    if return_filters:
+        return Y, _output(W if out_dtype is None else W.to(out_dtype), numpy_in)
+    return Y
 
 
 def overiva(
@@ -99,13 +187,9 @@ def overiva(
     before every ``callback_every`` epochs, as the reference does.
     """
     numpy_in = not isinstance(X, torch.Tensor)
-    M = X.shape[2]
-    N = M if n_src is None else int(n_src)
-    if not 1 <= N <= M:
-        raise ValueError("need 1 <= n_src <= n_chan")
+    N = _n_src(n_src, X.shape[2])
     cdtype = to_torch_dtype(dtype or DEFAULT_DTYPE)
-    if str(wcov) not in WCOV_MODES:
-        raise ValueError(f"wcov must be one of {WCOV_MODES}, got {wcov!r}")
+    _check_wcov(wcov)
     if str(wcov) == "bf16pack" and chunk_frames:
         raise ValueError(
             "wcov='bf16pack' has no chunked form (the packed kernel's "
@@ -135,35 +219,11 @@ def overiva(
     # acc="f32x2" runs on the complex64-rounded input (as its TPU tier does)
     Xd = as_tensor(X, out_dtype, dev).to(cdtype)
     W0d = None if W0 is None else as_tensor(W0, out_dtype, dev).to(cdtype)
-    W_hat, Cx = _core.prepare(Xd, N, bool(init_eig), W0d)
-
-    def run(W, steps):
-        return _core.overiva_iterations(
-            Xd, W, Cx, N, steps, model,
-            chunk_frames=int(chunk_frames) if chunk_frames else None,
-            wcov=str(wcov),
-        )
-
-    def outputs(W, scaled):
-        Y = _core.demix(Xd, W[:, :N, :])
-        if scaled:
-            Y = _proj.apply_projection_back(Y, Xd[:, :, 0])
-        return _output(Y.to(out_dtype), numpy_in)
-
-    if callback is None:
-        W_hat = run(W_hat, int(n_iter))
-    else:
-        done = 0
-        while done < n_iter:
-            callback(outputs(W_hat, True))
-            step = min(int(callback_every), int(n_iter) - done)
-            W_hat = run(W_hat, step)
-            done += step
-
-    Y = outputs(W_hat, bool(proj_back))
-    if return_filters:
-        return Y, _output(W_hat.to(out_dtype), numpy_in)
-    return Y
+    return _run(
+        Xd, N, n_iter, "ip", model, proj_back, return_filters, callback, callback_every,
+        numpy_in, out_dtype, init_eig=bool(init_eig), W0=W0d, wcov=str(wcov),
+        chunk_frames=int(chunk_frames) if chunk_frames else None,
+    )
 
 
 def auxiva(
@@ -224,40 +284,224 @@ def auxiva_pca(
     """PCA to n_src dims then determined AuxIVA; projection back against the
     original mic 0. Reference: ``auxiva_pca.py``.
 
-    ``inner="ip"`` (iterative projection) is ported; ``"iss"`` and
-    ``"ip2"`` raise NotImplementedError naming the ROADMAP item that ports
-    them. ``return_filters`` gives the reduced (n_freq, n_src, n_src) W."""
-    if inner != "ip":
-        if inner in _UNPORTED_ALGOS:
-            raise NotImplementedError(
-                f"auxiva_pca(inner={inner!r}) is not ported yet (ROADMAP.md "
-                f"Queue 1 item {_UNPORTED_ALGOS[inner]}); use inner='ip'"
-            )
-        raise ValueError(f"unknown inner {inner!r}; use 'ip'")
-    numpy_in = not isinstance(X, torch.Tensor)
+    ``inner``: "ip" (iterative projection), "iss" (source steering) or
+    "ip2" (pairwise updates; needs n_src >= 2). ``return_filters`` gives the
+    reduced (n_freq, n_src, n_src) W."""
+    _check_algo(inner, "inner")
+    N = _n_src(n_src, X.shape[2])
+    if inner == "ip2" and N < 2:
+        raise ValueError("inner='ip2' needs n_src >= 2")
+    _check_model(model)
+    numpy_in, _, Xd = _setup(X, dtype, device)
+    X_r = _pca.pca(Xd, N) if N < Xd.shape[2] else Xd
+    # the callback sees outputs scaled against the reduced STFT, as the
+    # inner AuxIVA's own callback does in the JAX package
+    Y, W = run_family(X_r, N, int(n_iter), model, inner,
+                      callback=_scaled_callback(callback, X_r, numpy_in),
+                      callback_every=callback_every)
+    # projection back against the original mic 0
+    Y = _finish(Y, Xd, bool(proj_back), numpy_in)
+    if return_filters:
+        return Y, _output(W, numpy_in)
+    return Y
+
+
+def _run_iss(X, N, n_iter, proj_back, W0, model, return_filters, callback,
+             callback_every, dtype, device):
+    """ISS from identity (or ``W0``: (F, M, M), or (F, N, M) target rows
+    placed into the identity)."""
+    _check_model(model)
+    numpy_in, cdtype, Xd = _setup(X, dtype, device)
+    W0d = None if W0 is None else as_tensor(W0, cdtype, Xd.device)
+    return _run(Xd, N, n_iter, "iss", model, proj_back, return_filters, callback,
+                callback_every, numpy_in, W0=W0d)
+
+
+def auxiva_iss(
+    X,
+    n_src=None,
+    n_iter=20,
+    proj_back=True,
+    W0=None,
+    model="laplace",
+    return_filters=False,
+    callback=None,
+    callback_every=10,
+    dtype=None,
+    device=None,
+):
+    """AuxIVA by iterative source steering (rank-1, solve-free updates).
+    Determined: n_src == n_chan. Reference: ``oracle/auxiva_iss.py``."""
+    M = X.shape[2]
+    N = M if n_src is None else int(n_src)
+    if N != M:
+        raise ValueError("auxiva_iss is determined: n_src must equal n_chan")
+    return _run_iss(X, N, n_iter, proj_back, W0, model, return_filters, callback,
+                    callback_every, dtype, device)
+
+
+def overiva_iss(
+    X,
+    n_src=None,
+    n_iter=20,
+    proj_back=True,
+    W0=None,
+    model="laplace",
+    return_filters=False,
+    callback=None,
+    callback_every=10,
+    dtype=None,
+    device=None,
+):
+    """Overdetermined IVA by iterative source steering: the M - n_src
+    background outputs carry a stationary unit Gaussian (phi = 1). N == M
+    is :func:`auxiva_iss`. ``W0`` may be (F, M, M) or (F, N, M) target
+    rows. Reference: ``oracle/overiva_iss.py``."""
     M = X.shape[2]
     N = M if n_src is None else int(n_src)
     if not 1 <= N <= M:
-        raise ValueError("need 1 <= n_src <= n_chan")
-    cdtype = to_torch_dtype(dtype or DEFAULT_DTYPE)
-    Xd = as_tensor(X, cdtype, resolve_device(device, X))
-    X_r = _pca.pca(Xd, N) if N < M else Xd
-    cb = callback
-    if callback is not None and numpy_in:  # NumPy in: the callback sees NumPy
-        def cb(Y):
-            callback(Y.cpu().numpy())
+        raise ValueError(f"n_src must be in [1, {M}], got {N}")
+    return _run_iss(X, N, n_iter, proj_back, W0, model, return_filters, callback,
+                    callback_every, dtype, device)
 
-    res = auxiva(
-        X_r, n_src=N, n_iter=n_iter, proj_back=False, model=model,
-        return_filters=return_filters, callback=cb,
-        callback_every=callback_every, dtype=cdtype,
-    )
-    Y, W = res if return_filters else (res, None)
-    if proj_back:
-        Y = _proj.apply_projection_back(Y, Xd[:, :, 0])
+
+def overiva_ip2(
+    X,
+    n_src=None,
+    n_iter=20,
+    proj_back=True,
+    W0=None,
+    model="laplace",
+    init_eig=False,
+    return_filters=False,
+    callback=None,
+    callback_every=10,
+    dtype=None,
+    wcov="f32",
+    device=None,
+):
+    """Pairwise-update OverIVA/AuxIVA (IP2). Reference:
+    ``oracle/overiva_ip2.py``.
+
+    Requires 2 <= n_src <= n_chan. X: (n_frames, n_freq, n_chan); returns
+    Y (n_frames, n_freq, n_src) [, W_hat]. ``wcov`` as in :func:`overiva`:
+    ``"bf16pack"`` runs the packed CUDA kernel once an epoch on a CUDA
+    device."""
+    N = _n_src(n_src, X.shape[2], low=2)
+    _check_wcov(wcov)
+    _check_model(model)
+    numpy_in, cdtype, Xd = _setup(X, dtype, device)
+    W0d = None if W0 is None else as_tensor(W0, cdtype, Xd.device)
+    return _run(Xd, N, n_iter, "ip2", model, proj_back, return_filters, callback,
+                callback_every, numpy_in, init_eig=bool(init_eig), W0=W0d, wcov=str(wcov))
+
+
+def auxiva_ip2(X, n_src=None, **kw):
+    """Determined pairwise AuxIVA (n_src must equal n_chan)."""
+    M = X.shape[2]
+    N = M if n_src is None else int(n_src)
+    if N != M:
+        raise ValueError("auxiva_ip2 is determined: n_src must equal n_chan")
+    return overiva_ip2(X, n_src=M, **kw)
+
+
+def five(
+    X,
+    n_iter=10,
+    proj_back=True,
+    model="laplace",
+    return_filters=False,
+    callback=None,
+    callback_every=1,
+    dtype=None,
+    device=None,
+):
+    """FIVE: one source by iterative SINR maximization. Returns Y
+    (n_frames, n_freq, 1) [, w (n_freq, n_chan), the unwhitened filter].
+    Reference: ``oracle/five.py``."""
+    _check_model(model)
+    numpy_in, _, Xd = _setup(X, dtype, device)
+    Xw, Q = _five.five_whiten(Xd)
+
+    def outputs(w, scaled):
+        return _finish(_five.five_demix(Xw, w)[:, :, None], Xd, scaled, numpy_in)
+
+    w = chunked(lambda w, steps: _five.five_iterations(Xw, w, steps, model),
+                 _five.five_init(Xw), n_iter, callback, callback_every,
+                 lambda w: outputs(w, True))
+    Y = outputs(w, bool(proj_back))
     if return_filters:
-        return _output(Y, numpy_in), _output(W, numpy_in)
-    return _output(Y, numpy_in)
+        return Y, _output(_five.five_unwhiten(Q, w), numpy_in)
+    return Y
+
+
+def _check_ogive(update, model):
+    if update not in _OGIVE_UPDATES:
+        raise ValueError(f"unknown update mode {update!r}")
+    _check_model(model)
+
+
+def _ogive_start(X, step_size, tol, init_eig, n_mix):
+    """The initial OGIVE state of ``n_mix`` folded mixtures: (w, a,
+    use_mix, Cx, Cx_inv, epoch, done, mu, tol)."""
+    w, a, Cx, Cx_inv = _ogive.ogive_init(X, bool(init_eig))
+    use_mix = torch.zeros(X.shape[1], dtype=torch.bool, device=X.device)
+    epoch = torch.zeros(n_mix, dtype=torch.int32, device=X.device)
+    done = torch.zeros(n_mix, dtype=torch.bool, device=X.device)
+    # the real dtype's own rounding of the step and the tolerance, as the
+    # JAX package passes them
+    rdtype = X.real.dtype
+    mu = torch.tensor(step_size, dtype=rdtype, device=X.device)
+    return w, a, use_mix, Cx, Cx_inv, epoch, done, mu, torch.tensor(tol, dtype=rdtype, device=X.device)
+
+
+def ogive(
+    X,
+    n_iter=4000,
+    step_size=0.1,
+    tol=1e-3,
+    update="demix",
+    proj_back=True,
+    model="laplace",
+    init_eig=False,
+    return_filters=False,
+    callback=None,
+    callback_every=100,
+    switch_every=10,
+    dtype=None,
+    device=None,
+):
+    """OGIVE single-source extraction with the early exit decided on the
+    device (``models/ogive.py``). Reference: ``ive.py``.
+
+    Returns Y (n_frames, n_freq, 1) [, w (n_freq, n_chan)]. With a
+    callback the run stops at the first callback chunk after convergence.
+    """
+    _check_ogive(update, model)
+    numpy_in, _, Xd = _setup(X, dtype, device)
+    w, a, use_mix, Cx, Cx_inv, epoch, done, mu, tolt = _ogive_start(
+        Xd, step_size, tol, init_eig, 1
+    )
+
+    def outputs(w, scaled):
+        return _finish(_ogive.ogive_demix(Xd, w)[:, :, None], Xd, scaled, numpy_in)
+
+    remaining = int(n_iter)
+    while remaining > 0:
+        step = remaining if callback is None else min(int(callback_every), remaining)
+        if callback is not None:
+            callback(outputs(w, True))
+        w, a, use_mix, epoch, done = _ogive.ogive_iterations(
+            Xd, w, a, use_mix, Cx, Cx_inv, epoch, done, mu, tolt, step, model,
+            update, int(switch_every),
+        )
+        remaining -= step
+        if callback is not None and bool(done.all()):
+            break
+    Y = outputs(w, bool(proj_back))
+    if return_filters:
+        return Y, _output(w, numpy_in)
+    return Y
 
 
 def overiva_batch(
@@ -276,24 +520,124 @@ def overiva_batch(
     n_freq, n_src). The batch is written out, not looped over: the per-bin
     linear algebra runs over batch * n_freq bins in one call, and power and
     the activations are per mixture (the JAX package's ``vmap``). No
-    callback (use :func:`overiva` per mixture for that).
+    callback (use :func:`overiva` per mixture for that); the same holds for
+    every ``*_batch`` form below.
     """
-    numpy_in = not isinstance(X, torch.Tensor)
-    if X.ndim != 4:
-        raise ValueError(
-            f"overiva_batch expects (B, T, F, M); got shape {tuple(X.shape)}"
-        )
-    M = X.shape[3]
-    N = M if n_src is None else int(n_src)
-    if not 1 <= N <= M:
-        raise ValueError("need 1 <= n_src <= n_chan")
+    _check_batch(X, "overiva_batch")
+    N = _n_src(n_src, X.shape[3])
     _check_model(model)
-    cdtype = to_torch_dtype(dtype or DEFAULT_DTYPE)
-    Xd = as_tensor(X, cdtype, resolve_device(device, X))
-    Y = _core.overiva_batch_run(
-        Xd, N, int(n_iter), model, init_eig=bool(init_eig), proj_back=bool(proj_back)
+    return _batch_run(X, N, n_iter, "ip", model, proj_back, dtype, device,
+                      init_eig=bool(init_eig))
+
+
+def _batch_out(Y, X, n_mix, proj_back, numpy_in):
+    """Folded outputs (T, B*F, K) -> (B, T, F, K), projection-back-scaled
+    against each mixture's mic 0 when ``proj_back``."""
+    if proj_back:
+        Y = _proj.apply_projection_back(Y, X[:, :, 0])
+    return _output(_core.unfold_mixtures(Y, n_mix), numpy_in)
+
+
+def _batch_run(X, N, n_iter, algo, model, proj_back, dtype, device, **opts):
+    """A batch (B, T, F, M) through :func:`run_family`, folded into the bin
+    axis (``models/overiva.py::fold_mixtures``). Returns (B, T, F, N)."""
+    numpy_in, _, Xb = _setup(X, dtype, device)
+    Xf = _core.fold_mixtures(Xb)
+    Y, _ = run_family(Xf, N, int(n_iter), model, algo, n_mix=Xb.shape[0], **opts)
+    return _batch_out(Y, Xf, Xb.shape[0], proj_back, numpy_in)
+
+
+def auxiva_iss_batch(X, n_src=None, n_iter=20, proj_back=True, model="laplace",
+                     dtype=None, device=None):
+    """A batch (B, T, F, M) through AuxIVA-ISS (OverIVA-ISS when
+    n_src < n_chan), folded into the bin axis as in :func:`overiva_batch`.
+    Returns (B, T, F, n_src)."""
+    _check_batch(X, "auxiva_iss_batch")
+    N = _n_src(n_src, X.shape[3])
+    _check_model(model)
+    return _batch_run(X, N, n_iter, "iss", model, proj_back, dtype, device)
+
+
+def overiva_iss_batch(X, n_src, **kw):
+    """:func:`auxiva_iss_batch` with a required n_src."""
+    return auxiva_iss_batch(X, n_src=n_src, **kw)
+
+
+def overiva_ip2_batch(X, n_src=None, n_iter=10, proj_back=True, model="laplace",
+                      dtype=None, device=None):
+    """A batch (B, T, F, M) through OverIVA-IP2, folded into the bin axis
+    as in :func:`overiva_batch` (f32 covariances). Returns (B, T, F, n_src)."""
+    _check_batch(X, "overiva_ip2_batch")
+    N = _n_src(n_src, X.shape[3], low=2)
+    _check_model(model)
+    return _batch_run(X, N, n_iter, "ip2", model, proj_back, dtype, device)
+
+
+def ogive_batch(
+    X,
+    n_iter=4000,
+    step_size=0.1,
+    tol=1e-3,
+    update="demix",
+    proj_back=True,
+    model="laplace",
+    init_eig=False,
+    switch_every=10,
+    return_epochs=False,
+    dtype=None,
+    device=None,
+):
+    """A batch (B, T, F, M) through OGIVE, folded into the bin axis, with
+    the early exit per mixture: a converged mixture freezes while the rest
+    run on, and each stops at its single-clip epoch. Returns (B, T, F, 1)
+    [, the epoch count of each mixture]."""
+    _check_ogive(update, model)
+    _check_batch(X, "ogive_batch")
+    numpy_in, _, Xb = _setup(X, dtype, device)
+    B = Xb.shape[0]
+    Xf = _core.fold_mixtures(Xb)
+    w, a, use_mix, Cx, Cx_inv, epoch, done, mu, tolt = _ogive_start(
+        Xf, step_size, tol, init_eig, B
     )
-    return _output(Y, numpy_in)
+    w, _, _, epoch, _ = _ogive.ogive_iterations(
+        Xf, w, a, use_mix, Cx, Cx_inv, epoch, done, mu, tolt, int(n_iter), model,
+        update, int(switch_every), n_mix=B,
+    )
+    Y = _batch_out(_ogive.ogive_demix(Xf, w)[:, :, None], Xf, B, proj_back, numpy_in)
+    if return_epochs:
+        return Y, _output(epoch, numpy_in)
+    return Y
+
+
+def five_batch(X, n_iter=10, proj_back=True, model="laplace", dtype=None,
+               device=None):
+    """A batch (B, T, F, M) through FIVE, folded into the bin axis.
+    Returns (B, T, F, 1)."""
+    _check_batch(X, "five_batch")
+    _check_model(model)
+    numpy_in, _, Xb = _setup(X, dtype, device)
+    Xf = _core.fold_mixtures(Xb)
+    Xw, _ = _five.five_whiten(Xf)
+    w = _five.five_iterations(Xw, _five.five_init(Xw), int(n_iter), model, n_mix=Xb.shape[0])
+    return _batch_out(_five.five_demix(Xw, w)[:, :, None], Xf, Xb.shape[0], proj_back,
+                      numpy_in)
+
+
+def auxiva_pca_batch(X, n_src=None, n_iter=20, proj_back=True, model="laplace",
+                     inner="ip", dtype=None, device=None):
+    """A batch (B, T, F, M) through PCA + determined AuxIVA (``inner`` as
+    in :func:`auxiva_pca`), folded into the bin axis; projection back
+    against each mixture's original mic 0. Returns (B, T, F, n_src)."""
+    _check_batch(X, "auxiva_pca_batch")
+    N = _n_src(n_src, X.shape[3])
+    _check_algo(inner, "inner")
+    if inner == "ip2" and N < 2:
+        raise ValueError("inner='ip2' needs n_src >= 2")
+    _check_model(model)
+    numpy_in, _, Xb = _setup(X, dtype, device)
+    Xf = _core.fold_mixtures(Xb)
+    Y, _ = _pca.auxiva_pca_run(Xf, N, int(n_iter), model, inner=inner, n_mix=Xb.shape[0])
+    return _batch_out(Y, Xf, Xb.shape[0], proj_back, numpy_in)
 
 
 def projection_back(Y, ref, device=None):
@@ -372,31 +716,35 @@ def separate(
     dtype=None,
     device=None,
 ):
-    """Time-domain in, time-domain out: STFT -> OverIVA/AuxIVA iterative
-    projection -> projection back -> iSTFT, on one device.
+    """Time-domain in, time-domain out: STFT -> separation -> projection
+    back -> iSTFT, on one device.
 
+    ``algo``: "ip" (OverIVA/AuxIVA iterative projection), "iss" (source
+    steering; OverIVA-ISS when n_src < n_chan) or "ip2" (pairwise updates,
+    n_src >= 2; ``init_eig`` does not apply, as in the JAX package). The
+    JAX package's other algorithms raise NotImplementedError naming the
+    ROADMAP item that ports them.
     mix: (n_samples, n_chan) real. Returns (n_samples, n_src) real.
-    ``algo="ip"`` is the ported algorithm; the JAX package's others raise
-    NotImplementedError naming the ROADMAP item that ports them.
     """
-    if algo != "ip":
+    if algo not in FAMILIES:
         if algo in _UNPORTED_ALGOS:
             raise NotImplementedError(
                 f"separate(algo={algo!r}) is not ported yet (ROADMAP.md "
-                f"Queue 1 item {_UNPORTED_ALGOS[algo]}); use algo='ip'"
+                f"Queue 1 item {_UNPORTED_ALGOS[algo]}); use 'ip', 'iss' or 'ip2'"
             )
-        raise ValueError(f"unknown algo {algo!r}; use 'ip'")
+        raise ValueError(f"unknown algo {algo!r}; use 'ip', 'iss' or 'ip2'")
     numpy_in = not isinstance(mix, torch.Tensor)
     hop = hop or nfft // 2
     n, M = mix.shape
-    N = M if n_src is None else int(n_src)
-    if not 1 <= N <= M:
-        raise ValueError("need 1 <= n_src <= n_chan")
+    N = _n_src(n_src, M)
+    if algo == "ip2" and N < 2:
+        raise ValueError("algo='ip2' needs n_src >= 2")
     _check_model(model)
     rdtype = to_torch_dtype(dtype or DEFAULT_DTYPE).to_real()
     x = as_tensor(mix, rdtype, resolve_device(device, mix))
     X = _stft.analysis(_stft.stft_pad(x, int(nfft), int(hop)), int(nfft), int(hop))
-    Y, _ = _core.overiva_run(X, N, int(n_iter), model, init_eig=bool(init_eig))
+    # init_eig applies to "ip" only, as in the JAX package's separate
+    Y, _ = run_family(X, N, int(n_iter), model, algo, init_eig=bool(init_eig) and algo == "ip")
     Y = _proj.apply_projection_back(Y, X[:, :, 0])
     y = _stft.synthesis(Y, int(nfft), int(hop))
     start = nfft - hop

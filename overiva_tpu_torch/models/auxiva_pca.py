@@ -2,7 +2,8 @@
 
 Counterpart of ``overiva_tpu/models/auxiva_pca.py`` (and the oracle's
 ``overiva_tpu/oracle/auxiva_pca.py``): reduce each bin to its top-n_src
-principal subspace, then run determined AuxIVA on the reduced STFT.
+principal subspace, then run determined AuxIVA (IP, ISS or IP2) on the
+reduced STFT.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ import torch
 
 from ..ops.covariance import covariance
 from ..ops.linalg import align_eigvec_phase, eigh
-from .overiva import overiva_run
+from .family import run_family
 
 __all__ = ["pca", "auxiva_pca_run"]
 
@@ -30,8 +31,9 @@ def pca(X, n_src: int, return_basis: bool = False):
     return X_r
 
 
-def auxiva_pca_run(X, n_src: int, n_iter: int, model: str):
-    """PCA reduce then determined AuxIVA. Returns (Y, W_reduced)."""
-    M = X.shape[2]
-    X_r = pca(X, n_src) if n_src < M else X
-    return overiva_run(X_r, n_src, n_iter, model)
+def auxiva_pca_run(X, n_src: int, n_iter: int, model: str, inner: str = "ip",
+                   n_mix: int = 1):
+    """PCA reduce then determined AuxIVA by ``inner`` ("ip", "iss" or
+    "ip2") on ``n_mix`` folded mixtures. Returns (Y, W_reduced)."""
+    X_r = pca(X, n_src) if n_src < X.shape[2] else X
+    return run_family(X_r, n_src, n_iter, model, inner, n_mix=n_mix)

@@ -17,14 +17,14 @@ import torch
 
 from ..ops.covariance import covariance, weighted_covariance_all
 from ..ops.linalg import align_eigvec_phase, clamp_pow2, eigh, gauss_solve, mat_h
-from ..ops.projection import apply_projection_back
 from ..ops.update_rows import ip_rows, update_rows
 from ..ops.wcov_packed import pack_planes, wcov_packed
 from .source_models import activations_from_power, power
 
 __all__ = [
-    "demix", "init_w_hat", "overiva_batch_run", "overiva_iterations",
-    "overiva_run", "prepare",
+    "demix", "epoch_covariances", "fold_mixtures", "init_w_hat",
+    "mixture_activations", "overiva_iterations",
+    "prepare", "unfold_mixtures",
 ]
 
 
@@ -70,21 +70,57 @@ def init_w_hat(X, n_src: int, init_eig: bool, Cx=None, W0=None, dtype=None):
     return W_hat
 
 
-def _epoch(X, W_hat, Cx, n_src: int, model: str, chunk_frames=None,
-           wcov: str = "f32", xpack=None):
-    """One epoch: activations from the current outputs, then the N IP row
-    updates in order. ``xpack``: the bf16 planes of X for ``bf16pack``,
-    packed once per run by the caller. Returns the new W_hat."""
-    T, F, _ = X.shape
+def fold_mixtures(Xb):
+    """A batch of mixtures (B, T, F, M) folded into the bin axis, (T, B*F, M):
+    mixture b holds bins b*F .. b*F + F - 1, so every per-bin step runs
+    over the B*F bins in one batched call."""
+    B, T, F, M = Xb.shape
+    return Xb.transpose(0, 1).reshape(T, B * F, M)
+
+
+def unfold_mixtures(Y, n_mix: int):
+    """(T, B*F, K) -> (B, T, F, K): the inverse of :func:`fold_mixtures`."""
+    T, BF, K = Y.shape
+    return Y.reshape(T, n_mix, BF // n_mix, K).transpose(0, 1)
+
+
+def mixture_activations(Y, model: str, n_mix: int = 1):
+    """phi (T, B, K) of the outputs Y (T, B*F, K) of ``n_mix`` folded
+    mixtures: the power sums over each mixture's own F bins."""
+    T, BF, K = Y.shape
+    F = BF // n_mix
+    _, phi = activations_from_power(power(Y.reshape(T, n_mix, F, K)), F, model)
+    return phi
+
+
+def epoch_covariances(X, W_hat, n_src: int, model: str, wcov: str = "f32",
+                      chunk_frames=None, xpack=None, n_mix: int = 1):
+    """The start of an IP epoch: demix, activations, then all N weighted
+    covariances (N, B*F, M, M) in one pass over X. ``xpack``: the bf16
+    planes of X for ``bf16pack``, packed once per run by the caller. With
+    ``n_mix`` > 1 folded mixtures (the batch forms, which have no ``wcov``)
+    each one's phi weights its own bins in the f32 tier."""
+    T, BF, M = X.shape
     N = n_src
-    _, phi = activations_from_power(power(demix(X, W_hat[:, :N, :])), F, model)
+    phi = mixture_activations(demix(X, W_hat[:, :N, :]), model, n_mix)
+    if n_mix == 1:
+        if xpack is not None:
+            return wcov_packed(xpack, phi[:, 0], T).to(X.dtype)
+        return weighted_covariance_all(X, phi[:, 0], wcov, chunk=chunk_frames)
+    Xm = X.reshape(T, n_mix, BF // n_mix, M)
+    Xw = Xm[None] * phi.permute(2, 0, 1)[..., None, None].to(X.real.dtype)
+    Vs = torch.einsum("ktbfm,tbfn->kbfmn", Xw, Xm.conj()) / T
+    return Vs.reshape(N, BF, M, M)
+
+
+def _epoch(X, W_hat, Cx, n_src: int, model: str, chunk_frames=None,
+           wcov: str = "f32", xpack=None, n_mix: int = 1):
+    """One epoch: activations from the current outputs, then the N IP row
+    updates in order. Returns the new W_hat."""
     # all N weighted covariances up front: they depend only on the
     # epoch-start phi, so one pass over X serves every source
-    if xpack is not None:
-        Vs = wcov_packed(xpack, phi, T).to(X.dtype)
-    else:
-        Vs = weighted_covariance_all(X, phi, wcov, chunk=chunk_frames)
-    return ip_rows(W_hat, Vs, Cx, N)
+    Vs = epoch_covariances(X, W_hat, n_src, model, wcov, chunk_frames, xpack, n_mix)
+    return ip_rows(W_hat, Vs, Cx, n_src)
 
 
 def _fused_epoch(X, W_hat, Cx, n_src: int, model: str):
@@ -98,15 +134,16 @@ def _fused_epoch(X, W_hat, Cx, n_src: int, model: str):
 
 
 def overiva_iterations(X, W_hat, Cx, n_src: int, n_iter: int, model: str,
-                       chunk_frames=None, wcov: str = "f32"):
-    """Run ``n_iter`` epochs. X: (T,F,M); W_hat, Cx: (F,M,M).
+                       chunk_frames=None, wcov: str = "f32", n_mix: int = 1):
+    """Run ``n_iter`` epochs. X: (T,F,M); W_hat, Cx: (F,M,M); F covers
+    ``n_mix`` folded mixtures.
 
     ``wcov="bf16pack"`` packs the bf16 planes of X once here (X is the
     same every epoch) and each epoch's weighted covariances run the
     packed kernel on them."""
     xpack = pack_planes(X) if wcov == "bf16pack" else None
     for _ in range(n_iter):
-        W_hat = _epoch(X, W_hat, Cx, n_src, model, chunk_frames, wcov, xpack)
+        W_hat = _epoch(X, W_hat, Cx, n_src, model, chunk_frames, wcov, xpack, n_mix)
     return W_hat
 
 
@@ -119,40 +156,3 @@ def prepare(X, n_src: int, init_eig: bool, W0=None):
     else:
         Cx = torch.zeros((F, M, M), dtype=X.dtype, device=X.device)
     return init_w_hat(X, n_src, init_eig, Cx=Cx, W0=W0), Cx
-
-
-def overiva_run(X, n_src: int, n_iter: int, model: str, init_eig=False, W0=None):
-    """Init + iterate + demix. Returns (Y, W_hat)."""
-    W_hat, Cx = prepare(X, n_src, init_eig, W0)
-    W_hat = overiva_iterations(X, W_hat, Cx, n_src, n_iter, model)
-    return demix(X, W_hat[:, :n_src, :]), W_hat
-
-
-def overiva_batch_run(Xb, n_src: int, n_iter: int, model: str, init_eig=False,
-                      proj_back=True):
-    """``overiva_run`` over a batch of same-shape mixtures, with the batch
-    written out (the JAX package's ``vmap``). Xb: (B, T, F, M). Returns Y
-    (B, T, F, n_src), projection-back-scaled when ``proj_back``.
-
-    The mixtures are folded into the bin axis, (T, B*F, M), so every
-    per-bin step (init, covariances, solves, projection back) runs over the
-    B*F bins in one batched call. Only the activations couple bins: the
-    power sums over each mixture's own F bins, and each mixture's phi
-    weights its own bins' covariances.
-    """
-    B, T, F, M = Xb.shape
-    N = n_src
-    X = Xb.transpose(0, 1).reshape(T, B * F, M)
-    Xm = X.reshape(T, B, F, M)  # the same memory, mixtures apart
-    W_hat, Cx = prepare(X, N, init_eig)
-    for _ in range(n_iter):
-        Y = demix(X, W_hat[:, :N, :]).reshape(T, B, F, N)
-        _, phi = activations_from_power(power(Y), F, model)  # (T, B, N)
-        # each mixture's phi weights its own bins (the f32 tier)
-        Xw = Xm[None] * phi.permute(2, 0, 1)[..., None, None].to(X.real.dtype)
-        Vs = torch.einsum("ktbfm,tbfn->kbfmn", Xw, Xm.conj()) / T
-        W_hat = ip_rows(W_hat, Vs.reshape(N, B * F, M, M), Cx, N)
-    Y = demix(X, W_hat[:, :N, :])
-    if proj_back:
-        Y = apply_projection_back(Y, X[:, :, 0])
-    return Y.reshape(T, B, F, N).transpose(0, 1)

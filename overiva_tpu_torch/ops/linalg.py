@@ -13,13 +13,18 @@ import torch
 
 __all__ = [
     "align_eigvec_phase", "clamp_pow2", "eigh", "gauss_solve", "mat_h",
-    "quad_form",
+    "matvec", "quad_form", "small_inv",
 ]
 
 
 def mat_h(A):
     """Batched Hermitian transpose: (..., m, n) -> (..., n, m)."""
     return A.transpose(-1, -2).conj()
+
+
+def matvec(A, x):
+    """Batched matrix-vector: (..., m, n) @ (..., n) -> (..., m)."""
+    return torch.einsum("...mn,...n->...m", A, x)
 
 
 def _real_dtype(x):
@@ -147,6 +152,13 @@ def gauss_solve(A, B):
         perm.append(p)
     idx = torch.stack(perm, dim=1)[:, :, None].expand(F, m, width - m)
     return torch.gather(Ab[:, :, m:], 1, idx)
+
+
+def small_inv(A):
+    """Batched small-matrix inverse: :func:`gauss_solve` against I."""
+    F, m, _ = A.shape
+    eye = torch.eye(m, dtype=A.dtype, device=A.device).expand(F, m, m)
+    return gauss_solve(A, eye)
 
 
 def eigh(A):

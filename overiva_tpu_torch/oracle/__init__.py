@@ -3,13 +3,19 @@
 Copies of the functions of ``overiva_tpu/oracle/`` that the port needs, with
 the same names, so that the port imports nothing of the JAX package:
 the STFT (``analysis``, ``synthesis``, ``stft_pad``, ``hann``,
-``synthesis_window``), the OverIVA oracle with its activations and
-projection back. ``tests/test_torch_oracle_copy.py`` holds each one bit for
-bit against its twin.
+``synthesis_window``), the OverIVA, AuxIVA-ISS, OverIVA-ISS, IP2, FIVE and
+OGIVE oracles with their activations and projection back.
+``tests/test_torch_oracle_copy.py`` holds each one bit for bit against its
+twin.
 """
 
+from .auxiva_iss import auxiva_iss
+from .five import five
 from .models import EPS, activations, align_eigvec_phase
+from .ogive import ogive
 from .overiva import overiva
+from .overiva_ip2 import auxiva_ip2, overiva_ip2
+from .overiva_iss import overiva_iss
 from .projection import apply_projection_back, projection_back
 from .stft import analysis, hann, stft_pad, synthesis, synthesis_window
 
@@ -19,8 +25,14 @@ __all__ = [
     "align_eigvec_phase",
     "analysis",
     "apply_projection_back",
+    "auxiva_ip2",
+    "auxiva_iss",
+    "five",
     "hann",
+    "ogive",
     "overiva",
+    "overiva_ip2",
+    "overiva_iss",
     "projection_back",
     "stft_pad",
     "synthesis",

@@ -2,10 +2,12 @@
 package.
 
 The JAX package hands its state out as NumPy arrays: ``W_hat`` from
-``overiva(..., return_filters=True)``, the input covariance ``Cx`` and the
-STFT ``X``. :func:`state_to_torch` turns such a mapping into tensors on one
-device and dtype, so the port can continue a run the JAX package started
-(or start from the same W); :func:`state_to_numpy` goes back.
+``overiva(..., return_filters=True)`` or the IP2 epochs, the ISS state
+``(W, Y)``, the FIVE filter ``w``, the OGIVE state ``(w, a, use_mix,
+epoch, done)``, the input covariance ``Cx`` and the STFT ``X``.
+:func:`state_to_torch` turns such a mapping into tensors on one device,
+so the port can continue a run the JAX package started (or start from the
+same state); :func:`state_to_numpy` goes back.
 :func:`planes_to_torch` joins the float planes that the JAX package's
 Pallas kernels take and return (``Xr, Xi``, ``Wr, Wi``, ...) into one
 complex tensor.
@@ -50,9 +52,18 @@ def as_tensor(x, dtype, device):
 
 
 def state_to_torch(state, device, dtype=torch.complex64):
-    """{name: NumPy array} -> {name: tensor on ``device`` as ``dtype``}."""
+    """{name: NumPy array} -> {name: tensor on ``device``}: numbers as
+    ``dtype``; flags (``use_mix``, ``done``) stay bool and counters
+    (``epoch``) stay integers."""
     dtype = to_torch_dtype(dtype)
-    return {k: as_tensor(v, dtype, device) for k, v in state.items()}
+
+    def one(v):
+        v = np.asarray(v)
+        if v.dtype == np.bool_ or np.issubdtype(v.dtype, np.integer):
+            return as_tensor(v, None, device)
+        return as_tensor(v, dtype, device)
+
+    return {k: one(v) for k, v in state.items()}
 
 
 def state_to_numpy(state):

@@ -1,5 +1,5 @@
-"""PyTorch port: the batch entry points, PCA + AuxIVA and the ``f32x3``
-tier against the JAX package on the CPU.
+"""PyTorch port: the batch entry points, PCA + AuxIVA (IP, ISS and IP2
+inside) and the ``f32x3`` tier against the JAX package on the CPU.
 
 Parity gate: complex128, rtol 1e-6 (tests/test_jax_parity.py). A batched
 result also equals the per-clip result of the port to f64 rounding
@@ -148,13 +148,37 @@ def test_auxiva_pca_callback_and_probes(mixture52):
         np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-8)
     Yt = tapi.auxiva_pca(torch.from_numpy(mixture52), n_src=2, n_iter=2)
     assert isinstance(Yt, torch.Tensor) and Yt.dtype == torch.complex64
-    for inner in ("iss", "ip2"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            tapi.auxiva_pca(mixture52, n_src=2, inner=inner, device="cpu")
     with pytest.raises(ValueError, match="inner"):
         tapi.auxiva_pca(mixture52, n_src=2, inner="bogus", device="cpu")
+    with pytest.raises(ValueError, match="n_src >= 2"):
+        tapi.auxiva_pca(mixture52, n_src=1, inner="ip2", device="cpu")
     with pytest.raises(ValueError, match="n_src"):
         tapi.auxiva_pca(mixture52, n_src=6, device="cpu")
+
+
+@pytest.mark.parametrize("inner", ["iss", "ip2"])
+def test_auxiva_pca_inner_matches_jax(mixture52, inner):
+    Yt, Wt = tapi.auxiva_pca(mixture52, n_src=2, n_iter=6, inner=inner, return_filters=True,
+                             dtype=C128, device="cpu")
+    Yj, Wj = japi.auxiva_pca(mixture52, n_src=2, n_iter=6, inner=inner, return_filters=True,
+                             dtype=C128)
+    assert Wt.shape == (mixture52.shape[1], 2, 2)
+    np.testing.assert_allclose(Wt, Wj, rtol=1e-6, atol=1e-8)
+    np.testing.assert_allclose(Yt, Yj, rtol=1e-6, atol=1e-8)
+
+
+@pytest.mark.parametrize("inner", ["ip", "iss", "ip2"])
+def test_auxiva_pca_batch_matches_jax_and_per_clip(mixture52, inner):
+    Xb = np.stack([mixture52[:40, :65], mixture52[30:70, :65]])
+    Yt = tapi.auxiva_pca_batch(Xb, n_src=2, n_iter=5, inner=inner, dtype=C128, device="cpu")
+    Yj = japi.auxiva_pca_batch(Xb, n_src=2, n_iter=5, inner=inner, dtype=C128)
+    assert Yt.shape == (2, 40, 65, 2)
+    np.testing.assert_allclose(Yt, Yj, rtol=1e-6, atol=1e-8)
+    for b in range(2):
+        Y1 = tapi.auxiva_pca(Xb[b], n_src=2, n_iter=5, inner=inner, dtype=C128, device="cpu")
+        np.testing.assert_allclose(Yt[b], Y1, rtol=1e-9, atol=1e-12)
+    with pytest.raises(ValueError, match="inner"):
+        tapi.auxiva_pca_batch(Xb, n_src=2, inner="bogus", device="cpu")
 
 
 def test_wcov_f32x3_tier(mixture52):

@@ -1,6 +1,7 @@
 """PyTorch port on a CUDA card: the hand-written kernels (``wcov_packed``,
-``update_rows``) against their plain versions, and the main path and the
-fused epoch on the card against the same on the CPU.
+``update_rows``) against their plain versions, and the main path, the
+fused epoch and the ISS, IP2, FIVE and OGIVE families on the card against
+the same on the CPU.
 
 Every test here needs a card and skips without one. This file imports no
 JAX, so it also runs where JAX is not installed:
@@ -243,3 +244,79 @@ def test_main_path_on_card_matches_cpu(cuda):
     assert isinstance(Y_pk, np.ndarray) and np.isfinite(Y_pk).all()
     Y32 = api.overiva(X, n_src=2, n_iter=8, device=cuda)
     assert np.linalg.norm(Y_pk - Y32) / np.linalg.norm(Y32) < 3e-2
+
+
+def _separable_mixture(seed, T=128, F=65, M=5, N=3):
+    """N gated complex Laplacian sources, a random mixing matrix A per bin
+    and a -40 dB noise floor: (X, A). IP2 separates it."""
+    rng = np.random.default_rng(seed)
+    gate = np.where(rng.random((T, 1, N)) < 0.5, 1.0, 0.1)
+    S = (rng.laplace(size=(T, F, N)) + 1j * rng.laplace(size=(T, F, N))) * gate
+    A = rng.standard_normal((F, M, N)) + 1j * rng.standard_normal((F, M, N))
+    noise = rng.standard_normal((T, F, M)) + 1j * rng.standard_normal((T, F, M))
+    return np.einsum("fmn,tfn->tfm", A, S) + 0.01 * noise, A
+
+
+def _dominance(W, A):
+    """Mean over bins and outputs of max|g|^2 / sum|g|^2 for the global
+    system G = W1 A: 1 for a scaled permutation, 1/N for no separation."""
+    G = np.abs(W[:, : A.shape[2], :] @ A) ** 2
+    return np.mean(G.max(axis=2) / G.sum(axis=2))
+
+
+def test_ip2_bf16pack_launches_once_an_epoch(cuda):
+    """IP2 with bf16pack runs the packed kernel once an epoch for all
+    sources (K = n_src), never with f32, and separates as f32 does. (In
+    complex64 IP2's pairwise branch makes single bins jump on rounding
+    alone, so the check is the separation, as tests/test_bf16.py's is.)"""
+    X, A = _separable_mixture(6)
+    before = twp.wcov_packed.launches
+    Y_pk, W_pk = api.overiva_ip2(X, n_src=3, n_iter=6, wcov="bf16pack", return_filters=True,
+                                 device=cuda)
+    assert twp.wcov_packed.launches == before + 6
+    _, W32 = api.overiva_ip2(X, n_src=3, n_iter=6, return_filters=True, device=cuda)
+    assert twp.wcov_packed.launches == before + 6
+    assert np.isfinite(Y_pk).all()
+    assert _dominance(W32, A) > 0.99
+    assert abs(_dominance(W_pk, A) - _dominance(W32, A)) < 1e-3
+    api.auxiva_ip2(X[:, :, :4], n_iter=3, wcov="bf16pack", device=cuda)  # K = M = 4
+    assert twp.wcov_packed.launches == before + 9
+
+
+@pytest.mark.parametrize(
+    "algo,kw,tol",
+    [
+        ("overiva_iss", {"n_src": 2, "n_iter": 8}, 1e-9),
+        ("auxiva_iss", {"n_iter": 8}, 1e-9),
+        ("overiva_ip2", {"n_src": 2, "n_iter": 5}, 1e-9),
+        # the library eigh on the card and on the CPU: eigenvectors agree
+        # to rounding once their phase is fixed
+        ("five", {"n_iter": 5}, 1e-7),
+        ("ogive", {"n_iter": 80, "step_size": 0.05, "tol": 0.0, "update": "switching"}, 1e-7),
+    ],
+)
+def test_family_on_card_matches_cpu(cuda, algo, kw, tol):
+    """complex128: each family on the card against the same run on the CPU."""
+    rng = np.random.default_rng(7)
+    T, F, M = 64, 65, 5
+    X = rng.standard_normal((T, F, M)) + 1j * rng.standard_normal((T, F, M))
+    fn = getattr(api, algo)
+    Y_gpu = fn(torch.from_numpy(X).to(cuda), dtype=np.complex128, **kw)
+    assert Y_gpu.device.type == "cuda"
+    Y_cpu = fn(X, dtype=np.complex128, device="cpu", **kw)
+    err = np.abs(Y_gpu.cpu().numpy() - Y_cpu).max() / np.abs(Y_cpu).max()
+    assert err <= tol, err
+
+
+def test_ogive_early_exit_on_card_matches_cpu(cuda):
+    """The per-mixture stop on the card is the CPU's, epoch for epoch."""
+    rng = np.random.default_rng(8)
+    T, F, M = 64, 65, 3
+    Xb = rng.standard_normal((2, T, F, M)) + 1j * rng.standard_normal((2, T, F, M))
+    Xb[1, :, :, 0] += 3 * Xb[1, :, :, 1]
+    kw = {"n_iter": 300, "step_size": 0.05, "tol": 5e-3, "return_epochs": True,
+          "dtype": np.complex128}
+    Y_gpu, e_gpu = api.ogive_batch(Xb, device=cuda, **kw)
+    Y_cpu, e_cpu = api.ogive_batch(Xb, device="cpu", **kw)
+    assert e_gpu.tolist() == e_cpu.tolist()
+    assert np.abs(Y_gpu - Y_cpu).max() <= 1e-7 * np.abs(Y_cpu).max()

@@ -87,6 +87,46 @@ def test_overiva_oracle_bit_for_bit(kw):
     _equal(tuple(snaps_t), tuple(snaps_j))
 
 
+@pytest.fixture(scope="module")
+def X4():
+    rng = np.random.default_rng(5)
+    mix, _, _ = make_mixture(rng, n_src=2, n_mics=4, n_samples=6000)
+    return joracle.analysis(joracle.stft_pad(mix, 128, 64), 128, 64)
+
+
+@pytest.mark.parametrize(
+    "name,kw",
+    [
+        ("auxiva_iss", {"n_iter": 4, "model": "gauss"}),
+        ("overiva_iss", {"n_src": 2, "n_iter": 4}),
+        ("overiva_iss", {"n_src": 2, "n_iter": 3, "w0_rows": True}),
+        ("overiva_ip2", {"n_src": 2, "n_iter": 3, "init_eig": True}),
+        ("auxiva_ip2", {"n_iter": 3, "proj_back": False}),
+        ("five", {"n_iter": 3}),
+        ("ogive", {"n_iter": 40, "step_size": 0.05, "tol": 1e-4}),
+        ("ogive", {"n_iter": 40, "update": "mix", "init_eig": True, "tol": 0.0}),
+        ("ogive", {"n_iter": 40, "update": "switching", "switch_every": 3, "tol": 0.0}),
+    ],
+)
+def test_family_oracles_bit_for_bit(X4, name, kw):
+    """The ISS, IP2, FIVE and OGIVE oracles, with their filters and their
+    callback snapshots."""
+    kw = dict(kw)
+    if kw.pop("w0_rows", False):
+        rng = np.random.default_rng(8)
+        F, M = X4.shape[1:]
+        kw["W0"] = np.eye(M)[None, :2] + 0.1 * rng.standard_normal((F, 2, M))
+    got = getattr(toracle, name)(X4, return_filters=True, **kw)
+    want = getattr(joracle, name)(X4, return_filters=True, **kw)
+    _equal(got, want)
+    snaps_t, snaps_j = [], []
+    every = 10 if name.startswith("ogive") else 2
+    getattr(toracle, name)(X4, callback=snaps_t.append, callback_every=every, **kw)
+    getattr(joracle, name)(X4, callback=snaps_j.append, callback_every=every, **kw)
+    assert len(snaps_t) == len(snaps_j) >= 2
+    _equal(tuple(snaps_t), tuple(snaps_j))
+
+
 def test_bss_eval_sources_bit_for_bit():
     """A 3-source case, with and without the permutation search."""
     rng = np.random.default_rng(6)
@@ -137,7 +177,8 @@ def _imported_modules(path):
 
 def test_port_never_imports_the_jax_package():
     files = _port_sources()
-    assert REPO / "overiva_tpu_torch" / "oracle" / "overiva.py" in files
+    for name in ("overiva", "auxiva_iss", "overiva_iss", "overiva_ip2", "five", "ogive"):
+        assert REPO / "overiva_tpu_torch" / "oracle" / f"{name}.py" in files
     offenders = {}
     for path in files:
         bad = [

@@ -23,13 +23,16 @@ def test_package_never_imports_jax():
         "import sys\n"
         "import overiva_tpu_torch\n"
         "from overiva_tpu_torch import api, _build\n"
-        "from overiva_tpu_torch.models import auxiva_pca, overiva\n"
+        "from overiva_tpu_torch.models import auxiva_iss, auxiva_pca, five, ogive\n"
+        "from overiva_tpu_torch.models import overiva, overiva_ip2\n"
         "from overiva_tpu_torch.ops import covariance, linalg, projection, stft\n"
         "from overiva_tpu_torch.ops import update_rows, wcov_packed\n"
         "from overiva_tpu_torch.utils import convert\n"
         "from overiva_tpu_torch import metrics, oracle\n"
         "from overiva_tpu_torch.metrics import bss_eval\n"
         "from overiva_tpu_torch.oracle import models, overiva, projection, stft\n"
+        "from overiva_tpu_torch.oracle import auxiva_iss, five, ogive, overiva_ip2\n"
+        "from overiva_tpu_torch.oracle import overiva_iss\n"
         "assert overiva_tpu_torch.overiva is api.overiva\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "jax_pkg = sorted(m for m in sys.modules\n"
@@ -46,9 +49,8 @@ def test_package_never_imports_jax():
 def test_lazy_exports_and_device_resolution(monkeypatch):
     from overiva_tpu_torch import api
 
-    for name in ("overiva", "auxiva", "separate", "stft_analysis", "stft_synthesis",
-                 "projection_back", "pca", "auxiva_pca", "overiva_batch",
-                 "stft_analysis_batch", "stft_synthesis_batch"):
+    assert sorted(overiva_tpu_torch._API) == sorted(api.__all__)
+    for name in api.__all__:
         assert getattr(overiva_tpu_torch, name) is getattr(api, name)
     with pytest.raises(AttributeError):
         overiva_tpu_torch.not_a_function  # noqa: B018
@@ -90,6 +92,24 @@ def test_numpy_input_needs_device_without_a_card(monkeypatch):
         "stft_synthesis": lambda **kw: api.stft_synthesis(X, 8, **kw),
         "stft_synthesis_batch": lambda **kw: api.stft_synthesis_batch(X[None], 8, **kw),
         "separate": lambda **kw: api.separate(mix, n_src=2, nfft=256, n_iter=2, **kw),
+        "separate iss": lambda **kw: api.separate(mix, n_src=2, nfft=256, n_iter=2,
+                                                  algo="iss", **kw),
+        "separate ip2": lambda **kw: api.separate(mix, n_src=2, nfft=256, n_iter=2,
+                                                  algo="ip2", **kw),
+        "auxiva_iss": lambda **kw: api.auxiva_iss(X, n_iter=2, **kw),
+        "overiva_iss": lambda **kw: api.overiva_iss(X, n_src=2, n_iter=2, **kw),
+        "overiva_ip2": lambda **kw: api.overiva_ip2(X, n_src=2, n_iter=2, **kw),
+        "auxiva_ip2": lambda **kw: api.auxiva_ip2(X, n_iter=2, **kw),
+        "ogive": lambda **kw: api.ogive(X, n_iter=3, **kw),
+        "five": lambda **kw: api.five(X, n_iter=2, **kw),
+        "auxiva_iss_batch": lambda **kw: api.auxiva_iss_batch(X[None], n_iter=2, **kw),
+        "overiva_iss_batch": lambda **kw: api.overiva_iss_batch(X[None], 2, n_iter=2, **kw),
+        "overiva_ip2_batch": lambda **kw: api.overiva_ip2_batch(X[None], n_src=2, n_iter=2,
+                                                                **kw),
+        "ogive_batch": lambda **kw: api.ogive_batch(X[None], n_iter=3, **kw),
+        "five_batch": lambda **kw: api.five_batch(X[None], n_iter=2, **kw),
+        "auxiva_pca_batch": lambda **kw: api.auxiva_pca_batch(X[None], n_src=2, n_iter=2,
+                                                              inner="iss", **kw),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match='device="cpu"'):
