@@ -1,4 +1,5 @@
-"""overiva_tpu_torch — the IP family of OverIVA/AuxIVA in PyTorch, for CUDA.
+"""overiva_tpu_torch — OverIVA/AuxIVA and its sibling families in PyTorch,
+for CUDA.
 
 A port of ``overiva_tpu`` (the JAX package, which stays the reference)
 to PyTorch on an NVIDIA H100. The public API mirrors ``overiva_tpu.api``:
@@ -8,11 +9,13 @@ to PyTorch on an NVIDIA H100. The public API mirrors ``overiva_tpu.api``:
             return_filters, callback, ...) -> Y
     auxiva(...), projection_back(Y, ref), stft_synthesis(Y, nfft),
     auxiva_iss, overiva_iss, overiva_ip2, auxiva_ip2, ogive, five,
-    separate(mix, n_src, algo="ip"|"iss"|"ip2"), pca,
-    auxiva_pca(inner="ip"|"iss"|"ip2"),
+    ilrma, fastmnmf2, fastmnmf, sparseauxiva,
+    separate(mix, n_src, algo="ip"|"iss"|"ip2"|"fastmnmf"|"fastmnmf2"),
+    pca, auxiva_pca(inner="ip"|"iss"|"ip2"),
     stft_analysis_batch, stft_synthesis_batch and the batch forms
     overiva_batch, auxiva_iss_batch, overiva_iss_batch, overiva_ip2_batch,
-    ogive_batch, five_batch, auxiva_pca_batch
+    ogive_batch, five_batch, auxiva_pca_batch, ilrma_batch,
+    fastmnmf2_batch, fastmnmf_batch, sparseauxiva_batch
 
 Inputs may be NumPy arrays or tensors. NumPy in gives NumPy out; a tensor
 in gives a tensor out, on the device the work ran on. Every public
@@ -24,8 +27,9 @@ needs are its own copies (``oracle/``, ``metrics/``).
 Two CUDA C++ kernels for ``sm_90a``, built with ``nvcc`` at first use: the
 weighted covariance of ``wcov="bf16pack"`` (``csrc/wcov_packed.cu``) and
 the fused per-bin IP update (``csrc/update_rows.cu``, ``ops/update_rows.py``,
-run by ``models/overiva.py::_fused_epoch``). ``overiva_ip2`` with
-``wcov="bf16pack"`` runs the first once an epoch too.
+run by ``models/overiva.py::_fused_epoch``). ``overiva_ip2`` and both IP
+phases of ``sparseauxiva`` with ``wcov="bf16pack"`` run the first once an
+epoch too.
 """
 
 __all__ = ["resolve_device"]
@@ -34,9 +38,11 @@ _API = {
     name: "api"
     for name in (
         "auxiva", "auxiva_ip2", "auxiva_iss", "auxiva_iss_batch", "auxiva_pca",
-        "auxiva_pca_batch", "five", "five_batch", "ogive", "ogive_batch",
-        "overiva", "overiva_batch", "overiva_ip2", "overiva_ip2_batch",
-        "overiva_iss", "overiva_iss_batch", "pca", "projection_back", "separate",
+        "auxiva_pca_batch", "fastmnmf", "fastmnmf2", "fastmnmf2_batch",
+        "fastmnmf_batch", "five", "five_batch", "ilrma", "ilrma_batch", "ogive",
+        "ogive_batch", "overiva", "overiva_batch", "overiva_ip2",
+        "overiva_ip2_batch", "overiva_iss", "overiva_iss_batch", "pca",
+        "projection_back", "separate", "sparseauxiva", "sparseauxiva_batch",
         "stft_analysis", "stft_analysis_batch", "stft_synthesis",
         "stft_synthesis_batch",
     )

@@ -1,7 +1,8 @@
-"""Public API: the IP family, NumPy or tensors in and out.
+"""Public API: the IP family and the per-(t,f)-weighted families, NumPy or
+tensors in and out.
 
-Counterpart of the IP-family slice of ``overiva_tpu/api.py``, with the
-same signatures and validation plus ``device=``:
+Counterpart of that slice of ``overiva_tpu/api.py``, with the same
+signatures and validation plus ``device=``:
 
     stft_analysis(x, nfft) -> X            (n_frames, n_freq, n_chan)
     overiva(X, n_src, ...) -> Y [, W_hat]  (n_frames, n_freq, n_src)
@@ -10,11 +11,14 @@ same signatures and validation plus ``device=``:
     overiva_ip2, auxiva_ip2                pairwise updates (n_src >= 2)
     ogive, five                            one source extracted
     pca(X, n_src), auxiva_pca(X, n_src, inner="ip"|"iss"|"ip2")
-    separate(mix, n_src, algo="ip"|"iss"|"ip2")
+    ilrma, fastmnmf2, fastmnmf             per-(t,f)-weighted NMF models
+    sparseauxiva                           IP on a bin subset + LASSO fill
+    separate(mix, n_src, algo="ip"|"iss"|"ip2"|"fastmnmf"|"fastmnmf2")
                                            samples in, samples out
     stft_analysis_batch, stft_synthesis_batch, overiva_batch,
     auxiva_iss_batch, overiva_iss_batch, overiva_ip2_batch, ogive_batch,
-    five_batch, auxiva_pca_batch           a leading batch axis, written out
+    five_batch, auxiva_pca_batch, ilrma_batch, fastmnmf2_batch,
+    fastmnmf_batch, sparseauxiva_batch     a leading batch axis, written out
 
 A NumPy input gives a NumPy output; a tensor input gives a tensor on the
 device the work ran on. ``device`` defaults to the input tensor's device,
@@ -25,18 +29,26 @@ dtype is complex64. Complex values cross the host boundary as they are.
 
 from __future__ import annotations
 
+import warnings
+
+import numpy as np
 import torch
 
 from . import resolve_device
 from .models import auxiva_pca as _pca
+from .models import fastmnmf2 as _mnmf
 from .models import five as _five
+from .models import ilrma as _ilrma
 from .models import ogive as _ogive
 from .models import overiva as _core
+from .models import sparseauxiva as _sparse
 from .models.family import FAMILIES, chunked, run_family
 from .models.source_models import MODELS
 from .ops import projection as _proj
 from .ops import stft as _stft
-from .ops.covariance import WCOV_MODES
+from .ops.covariance import check_tf_wcov, check_wcov
+from .oracle.sparseauxiva import _resolve_n_bins
+from .utils import threefry
 from .utils.convert import as_tensor, to_torch_dtype
 
 __all__ = [
@@ -46,8 +58,14 @@ __all__ = [
     "auxiva_iss_batch",
     "auxiva_pca",
     "auxiva_pca_batch",
+    "fastmnmf",
+    "fastmnmf2",
+    "fastmnmf2_batch",
+    "fastmnmf_batch",
     "five",
     "five_batch",
+    "ilrma",
+    "ilrma_batch",
     "ogive",
     "ogive_batch",
     "overiva",
@@ -59,6 +77,8 @@ __all__ = [
     "pca",
     "projection_back",
     "separate",
+    "sparseauxiva",
+    "sparseauxiva_batch",
     "stft_analysis",
     "stft_analysis_batch",
     "stft_synthesis",
@@ -68,24 +88,18 @@ __all__ = [
 DEFAULT_DTYPE = torch.complex64
 # the other algorithms of overiva_tpu.api.separate, and the ROADMAP.md
 # Queue 1 item that ports each
-_UNPORTED_ALGOS = {
-    "fastmnmf": 13, "fastmnmf2": 13, "tiss": 14, "tip": 14, "ilrma_t": 14,
-}
+_UNPORTED_ALGOS = {"tiss": 14, "tip": 14, "ilrma_t": 14}
+_MNMF_ALGOS = ("fastmnmf", "fastmnmf2")
 _OGIVE_UPDATES = ("demix", "mix", "switching")
 
 
 def _output(t, numpy_in: bool):
-    return t.cpu().numpy() if numpy_in else t
+    return t.resolve_conj().cpu().numpy() if numpy_in else t
 
 
 def _check_model(model):
     if model not in MODELS:
         raise ValueError(f"unknown source model {model!r}; use one of {MODELS}")
-
-
-def _check_wcov(wcov):
-    if str(wcov) not in WCOV_MODES:
-        raise ValueError(f"wcov must be one of {WCOV_MODES}, got {wcov!r}")
 
 
 def _check_batch(X, name):
@@ -189,7 +203,7 @@ def overiva(
     numpy_in = not isinstance(X, torch.Tensor)
     N = _n_src(n_src, X.shape[2])
     cdtype = to_torch_dtype(dtype or DEFAULT_DTYPE)
-    _check_wcov(wcov)
+    check_wcov(wcov)
     if str(wcov) == "bf16pack" and chunk_frames:
         raise ValueError(
             "wcov='bf16pack' has no chunked form (the packed kernel's "
@@ -388,7 +402,7 @@ def overiva_ip2(
     ``"bf16pack"`` runs the packed CUDA kernel once an epoch on a CUDA
     device."""
     N = _n_src(n_src, X.shape[2], low=2)
-    _check_wcov(wcov)
+    check_wcov(wcov)
     _check_model(model)
     numpy_in, cdtype, Xd = _setup(X, dtype, device)
     W0d = None if W0 is None else as_tensor(W0, cdtype, Xd.device)
@@ -640,6 +654,348 @@ def auxiva_pca_batch(X, n_src=None, n_iter=20, proj_back=True, model="laplace",
     return _batch_out(Y, Xf, Xb.shape[0], proj_back, numpy_in)
 
 
+# ------------------------------------------- the per-(t,f)-weighted families
+
+def _real_np(cdtype):
+    return np.float32 if cdtype == torch.complex64 else np.float64
+
+
+def _seeds(seed, seeds, n):
+    """Each mixture's NMF seed: ``seeds`` if given, else seed + b."""
+    seeds = [seed + b for b in range(n)] if seeds is None else list(seeds)
+    if len(seeds) != n:
+        raise ValueError(f"seeds must have batch length {n}")
+    return seeds
+
+
+def _nmf_init(seeds, N, F, K, T, cdtype, device):
+    """Each mixture's NMF start, (nb, N, F, K) basis and (nb, N, K, T)
+    activations: one ``default_rng(seed).random`` draw each, basis first,
+    plus 0.1, as the JAX package draws them."""
+    rdtype = _real_np(cdtype)
+    basis, act = [], []
+    for s in seeds:
+        rng = np.random.default_rng(s)
+        basis.append((rng.random((N, F, K)) + 0.1).astype(rdtype))
+        act.append((rng.random((N, K, T)) + 0.1).astype(rdtype))
+    return as_tensor(np.stack(basis), None, device), as_tensor(np.stack(act), None, device)
+
+
+def _eyes(nb, F, M, dtype, device):
+    return torch.eye(M, dtype=dtype, device=device).repeat(nb, F, 1, 1)
+
+
+def _determined(n_src, M, name):
+    if (M if n_src is None else int(n_src)) != M:
+        raise ValueError(f"{name} is determined: n_src must equal n_chan")
+
+
+def ilrma(
+    X,
+    n_src=None,
+    n_iter=20,
+    proj_back=True,
+    W0=None,
+    n_components=2,
+    return_filters=False,
+    callback=None,
+    callback_every=10,
+    seed=0,
+    dtype=None,
+    wcov="f32",
+    device=None,
+):
+    """ILRMA (determined, rank-``n_components`` NMF source model;
+    ``models/ilrma.py``). Reference: ``pyroomacoustics.bss.ilrma``. The
+    NMF init is one ``default_rng(seed).random`` draw each for basis and
+    activations, as the oracle's. ``wcov``: ``"f32"``, ``"f32x3"`` (exact
+    f32 here) or ``"bf16"``; ``"bf16pack"`` raises (no per-(t,f) kernel).
+
+    X: (n_frames, n_freq, n_chan). Returns Y (n_frames, n_freq, n_chan)
+    [, W (n_freq, n_chan, n_chan)]."""
+    T, F, M = X.shape
+    _determined(n_src, M, "ilrma")
+    check_tf_wcov(wcov)
+    numpy_in, cdtype, Xd = _setup(X, dtype, device)
+    Xb = Xd[None]
+    W = (_eyes(1, F, M, cdtype, Xd.device) if W0 is None
+         else as_tensor(W0, cdtype, Xd.device)[None])
+    B, H = _nmf_init([seed], M, F, int(n_components), T, cdtype, Xd.device)
+
+    def run(state, steps):
+        return _ilrma.ilrma_iterations(Xb, *state, steps, str(wcov))
+
+    W = chunked(run, (W, B, H), n_iter, _scaled_callback(callback, Xd, numpy_in),
+                callback_every, lambda s: _core.demix(Xd, s[0][0]))[0][0]
+    Y = _finish(_core.demix(Xd, W), Xd, bool(proj_back), numpy_in)
+    if return_filters:
+        return Y, _output(W, numpy_in)
+    return Y
+
+
+def ilrma_batch(X, n_src=None, n_iter=20, proj_back=True, n_components=2, seed=0,
+                seeds=None, dtype=None, wcov="f32", device=None):
+    """A batch (B, T, F, M) through ILRMA, with a leading batch axis (the
+    activations and the rescale sum over each mixture's own bins, so the
+    batch is not folded into them). Element b's NMF init is
+    ``ilrma(X[b], seed=seed + b)``'s, or ``seed=seeds[b]``. Returns
+    (B, T, F, M)."""
+    _check_batch(X, "ilrma_batch")
+    nb, T, F, M = X.shape
+    _determined(n_src, M, "ilrma")
+    check_tf_wcov(wcov)
+    seeds = _seeds(seed, seeds, nb)
+    numpy_in, cdtype, Xb = _setup(X, dtype, device)
+    B, H = _nmf_init(seeds, M, F, int(n_components), T, cdtype, Xb.device)
+    W, _, _ = _ilrma.ilrma_iterations(Xb, _eyes(nb, F, M, cdtype, Xb.device), B, H,
+                                      int(n_iter), str(wcov))
+    Xf = _core.fold_mixtures(Xb)
+    return _batch_out(_core.fold_mixtures(_ilrma.ilrma_demix(Xb, W)), Xf, nb, proj_back,
+                      numpy_in)
+
+
+def _mnmf_slots(n_src, n_noise, M, init):
+    """(outputs returned, model slots) of a FastMNMF run."""
+    N_out = M if n_src is None else int(n_src)
+    if N_out < 1:
+        raise ValueError("need n_src >= 1")
+    if init not in ("whiten", "eye"):
+        raise ValueError(f"init must be 'whiten' or 'eye', got {init!r}")
+    if n_noise == "auto":
+        n_noise = M - N_out if N_out < M else 0
+    return N_out, N_out + int(n_noise)
+
+
+def _mnmf_start(Xb, N, n_components, seeds, init, tie_g):
+    """The unit-power input, its scale and the start (Q, g, W, H) of a
+    FastMNMF run on the mixtures Xb (nb, T, F, M): whitened (or identity)
+    Q, diagonal-dominant g, the NMF init of each seed."""
+    nb, T, F, M = Xb.shape
+    Xu, x_scale = _mnmf.unit_power(Xb)
+    Q = _mnmf.whiten_q(Xu) if init == "whiten" else _eyes(nb, F, M, Xb.dtype, Xb.device)
+    g = np.full((N, M), 1e-2)
+    for n in range(N):
+        g[n, n % M] = 1.0
+    g /= g.sum(axis=1, keepdims=True)
+    if not tie_g:  # FastMNMF1: free per-frequency spatial weights
+        g = np.tile(g[:, None, :], (1, F, 1))
+    g = as_tensor(g.astype(_real_np(Xb.dtype)), None, Xb.device)
+    W, H = _nmf_init(seeds, N, F, int(n_components), T, Xb.dtype, Xb.device)
+    return Xu, x_scale, (Q, g.expand(nb, *g.shape).clone(), W, H)
+
+
+def _mnmf_images(Xu, x_scale, state, mic_index, n_out):
+    """The Wiener images at ``mic_index``, rescaled to the input, the
+    ``n_out`` loudest of each mixture: (nb, T, F, n_out)."""
+    Y = _mnmf.fastmnmf2_wiener(Xu, *state, int(mic_index)) * x_scale
+    return _mnmf.pick_loudest(Y, n_out)
+
+
+def _fastmnmf_impl(
+    X,
+    n_src=None,
+    n_iter=30,
+    n_components=2,
+    mic_index=0,
+    init="whiten",
+    n_noise="auto",
+    return_filters=False,
+    callback=None,
+    callback_every=10,
+    seed=0,
+    dtype=None,
+    wcov="f32",
+    tie_g=True,
+    n_q_sweeps=1,
+    device=None,
+):
+    """Shared FastMNMF1/2 runner (``tie_g`` picks the variant;
+    ``models/fastmnmf2.py``). X: (n_frames, n_freq, n_chan). Returns Y
+    (n_frames, n_freq, n_src), the multichannel Wiener images at
+    ``mic_index`` (no projection back) [, (Q, g, W, H) of the whole model,
+    fitted to the unit-power input, if ``return_filters``]. ``n_noise``
+    extra slots ("auto": up to n_chan in all) absorb the noise floor; the
+    n_src loudest images are returned. ``n_q_sweeps`` IP sweeps over the
+    rows of Q an epoch reuse the epoch's covariances. ``wcov`` as in
+    :func:`ilrma`."""
+    T, F, M = X.shape
+    # the measured regime boundary of the JAX package (PARITY.md): with
+    # starved frames the full-rank model overfits at long horizons
+    if T < 150 and n_iter > 60:
+        warnings.warn(
+            f"FastMNMF with only T={T} frames and n_iter={n_iter}: below "
+            "the measured safe regime (T >= ~150 for 100+ epochs — "
+            "PARITY.md). The full-rank model overfits starved frames at "
+            "long horizons; float32 can go non-finite. Use a smaller nfft "
+            "(more frames) or n_iter <= 60.",
+            UserWarning,
+            stacklevel=3,
+        )
+    N_out, N = _mnmf_slots(n_src, n_noise, M, init)
+    check_tf_wcov(wcov)
+    numpy_in, _, Xd = _setup(X, dtype, device)
+    Xu, x_scale, state = _mnmf_start(Xd[None], N, n_components, [seed], init, tie_g)
+
+    def outputs(state):
+        return _output(_mnmf_images(Xu, x_scale, state, mic_index, N_out)[0], numpy_in)
+
+    def run(state, steps):
+        return _mnmf.fastmnmf2_iterations(Xu, *state, steps, str(wcov), int(n_q_sweeps))
+
+    state = chunked(run, state, n_iter, callback, callback_every, outputs)
+    Y = outputs(state)
+    if return_filters:
+        return Y, tuple(_output(s[0], numpy_in) for s in state)
+    return Y
+
+
+def fastmnmf2(X, **kwargs):
+    """FastMNMF2: spatial weights g (N, M) tied across frequency (Sekiguchi
+    et al., TASLP 2020). Parameters as in :func:`_fastmnmf_impl`."""
+    return _fastmnmf_impl(X, tie_g=True, **kwargs)
+
+
+def fastmnmf(X, **kwargs):
+    """FastMNMF1: free per-frequency spatial weights g (N, F, M) (Sekiguchi
+    et al., EUSIPCO 2019). Parameters as in :func:`_fastmnmf_impl`."""
+    return _fastmnmf_impl(X, tie_g=False, **kwargs)
+
+
+def fastmnmf2_batch(X, n_src=None, n_iter=30, n_components=2, mic_index=0,
+                    init="whiten", n_noise="auto", seed=0, seeds=None, dtype=None,
+                    tie_g=True, device=None):
+    """A batch (B, T, F, M) through FastMNMF2 (``tie_g=False``: FastMNMF1),
+    with a leading batch axis (H, g and nu sum over each mixture's own
+    bins). Element b's NMF init is ``fastmnmf2(X[b], seed=seed + b)``'s,
+    or ``seed=seeds[b]``. Returns (B, T, F, n_src)."""
+    _check_batch(X, "fastmnmf2_batch")
+    nb, T, F, M = X.shape
+    N_out, N = _mnmf_slots(n_src, n_noise, M, init)
+    seeds = _seeds(seed, seeds, nb)
+    numpy_in, _, Xb = _setup(X, dtype, device)
+    Xu, x_scale, state = _mnmf_start(Xb, N, n_components, seeds, init, tie_g)
+    state = _mnmf.fastmnmf2_iterations(Xu, *state, int(n_iter))
+    return _output(_mnmf_images(Xu, x_scale, state, mic_index, N_out), numpy_in)
+
+
+def fastmnmf_batch(X, **kwargs):
+    """Batched FastMNMF1: :func:`fastmnmf2_batch` with ``tie_g=False``."""
+    return fastmnmf2_batch(X, tie_g=False, **kwargs)
+
+
+def _sparse_taps(F, filter_taps, acausal_taps):
+    """(nfft, causal taps, acausal taps) of the RTF support."""
+    nfft = 2 * (F - 1)
+    return (nfft, nfft // 4 if filter_taps is None else int(filter_taps),
+            nfft // 16 if acausal_taps is None else int(acausal_taps))
+
+
+def sparseauxiva(
+    X,
+    S=None,
+    n_bins=None,
+    n_src=None,
+    n_iter=20,
+    proj_back=True,
+    W0=None,
+    model="laplace",
+    lasso_iter=300,
+    lasso_lam=0.05,
+    filter_taps=None,
+    acausal_taps=None,
+    polish_iter=3,
+    return_filters=False,
+    callback=None,
+    callback_every=10,
+    dtype=None,
+    wcov="f32",
+    device=None,
+):
+    """SparseAuxIVA: AuxIVA (IP) on a bin subset ``S``, LASSO reconstruction
+    of the other bins' demixing from the mixing-side RTFs, then
+    ``polish_iter`` full-band IP epochs (``models/sparseauxiva.py``; the
+    oracle copy carries the design notes). Determined. S defaults to the
+    stratified top-power F/4 bins, or ``n_bins`` of them (a count, or a
+    fraction of F). ``wcov`` as in :func:`overiva`: ``"bf16pack"`` runs
+    the packed CUDA kernel once an epoch in both IP phases on a CUDA
+    device. ``callback`` receives full-band snapshots with zeros at the
+    unselected bins during the subset phase. S = all bins is
+    :func:`auxiva` exactly.
+
+    X: (n_frames, n_freq, n_chan). Returns Y (n_frames, n_freq, n_chan)
+    [, W (n_freq, n_chan, n_chan)]."""
+    T, F, M = X.shape
+    _determined(n_src, M, "sparseauxiva")
+    check_wcov(wcov)
+    _check_model(model)
+    numpy_in, cdtype, Xd = _setup(X, dtype, device)
+    if S is None:
+        S = _sparse.select_bins(Xd[None], _resolve_n_bins(n_bins, F, M))[0]
+    S = np.asarray(S)
+    if S.ndim != 1 or S.size == 0 or S[-1] >= F or S[0] < 0:
+        raise ValueError("S must be a non-empty 1-D array of bin indices < F")
+    if np.any(np.diff(S) <= 0):
+        raise ValueError("S must be strictly increasing (sorted, unique)")
+    nfft, n_causal, n_acausal = _sparse_taps(F, filter_taps, acausal_taps)
+
+    # phase 1: determined IP on the selected bins only
+    S_t = torch.as_tensor(S, device=Xd.device)
+    Xs = Xd[:, S_t, :]
+    W0s = None if W0 is None else as_tensor(W0, cdtype, Xd.device)[S_t]
+    cb = None
+    if callback is not None:
+        def cb(Ys):  # the scaled subset snapshot, placed into a full band
+            full = Xd.new_zeros((T, F, M))
+            full[:, S_t] = _proj.apply_projection_back(Ys, Xs[:, :, 0])
+            callback(_output(full, numpy_in))
+    Y, W = run_family(Xs, M, int(n_iter), model, "ip", W0=W0s, wcov=str(wcov),
+                      callback=cb, callback_every=callback_every)
+
+    if S.size < F:
+        # phase 2: RTF LASSO reconstruction of the unselected bins
+        W = _sparse.sparse_reconstruct(W[None], S[None], F, nfft, n_causal, n_acausal,
+                                       int(lasso_iter), float(lasso_lam))[0]
+        Xs = Xd
+        if polish_iter > 0:  # phase 3: full-band polish, warm-started
+            Y, W = run_family(Xd, M, int(polish_iter), model, "ip", W0=W, wcov=str(wcov))
+        else:
+            Y = _core.demix(Xd, W)
+    Y = _finish(Y, Xs, bool(proj_back), numpy_in)
+    if return_filters:
+        return Y, _output(W, numpy_in)
+    return Y
+
+
+def sparseauxiva_batch(X, n_bins=None, n_src=None, n_iter=20, proj_back=True,
+                       model="laplace", lasso_iter=300, lasso_lam=0.05, filter_taps=None,
+                       acausal_taps=None, polish_iter=3, dtype=None, device=None):
+    """A batch (B, T, F, M) through SparseAuxIVA: each mixture's own
+    stratified subset (all of one size), the IP phases folded into the bin
+    axis, FISTA as batched products (one partial-DFT matrix a mixture).
+    Returns (B, T, F, M)."""
+    _check_batch(X, "sparseauxiva_batch")
+    nb, T, F, M = X.shape
+    _determined(n_src, M, "sparseauxiva")
+    _check_model(model)
+    numpy_in, _, Xb = _setup(X, dtype, device)
+    S = _sparse.select_bins(Xb, _resolve_n_bins(n_bins, F, M))
+    k = S.shape[1]
+    if k == F:
+        raise ValueError("all bins selected: use auxiva_iss/overiva_batch")
+    nfft, n_causal, n_acausal = _sparse_taps(F, filter_taps, acausal_taps)
+    S_t = torch.as_tensor(S, device=Xb.device)
+    Xs = torch.gather(Xb, 2, S_t[:, None, :, None].expand(nb, T, k, M))
+    _, Ws = run_family(_core.fold_mixtures(Xs), M, int(n_iter), model, "ip", n_mix=nb)
+    W = _sparse.sparse_reconstruct(Ws.reshape(nb, k, M, M), S, F, nfft, n_causal, n_acausal,
+                                   int(lasso_iter), float(lasso_lam)).reshape(nb * F, M, M)
+    Xf = _core.fold_mixtures(Xb)
+    if polish_iter > 0:
+        Y, _ = run_family(Xf, M, int(polish_iter), model, "ip", W0=W, n_mix=nb)
+    else:
+        Y = _core.demix(Xf, W)
+    return _batch_out(Y, Xf, nb, proj_back, numpy_in)
+
+
 def projection_back(Y, ref, device=None):
     """Minimal-distortion rescale factors z (F, K). The caller applies
     ``Y *= conj(z)[None]``, the reference's convention."""
@@ -704,6 +1060,29 @@ def stft_synthesis(X, nfft, hop=None, win_s=None, dtype=None, device=None):
     return _output(_stft.synthesis(Xd, int(nfft), int(hop), win_s), numpy_in)
 
 
+def _separate_mnmf(X, n_src, n_iter, algo):
+    """FastMNMF2 (or FastMNMF1) on X (T, F, M) as the JAX package's fused
+    ``separate`` runs it: unit power, whitened Q, M slots, L = 2 NMF
+    components drawn from ``jax.random.PRNGKey(0)``, the Wiener images at
+    mic 0 rescaled, the ``n_src`` loudest. Returns (T, F, n_src)."""
+    T, F, M = X.shape
+    rdtype = X.real.dtype
+    Xu, x_scale = _mnmf.unit_power(X[None])
+    g = torch.full((M, M), 1e-2, dtype=rdtype, device=X.device)
+    g.fill_diagonal_(1.0)
+    g = g / g.sum(dim=1, keepdim=True)
+    if algo == "fastmnmf":  # FastMNMF1: per-frequency spatial weights
+        g = g[:, None, :].expand(M, F, M)
+    rnp = np.dtype(_real_np(X.dtype))
+    k1, k2 = threefry.split(threefry.prng_key(0))
+    W = threefry.uniform(k1, (M, F, 2), rnp) + rnp.type(0.1)
+    H = threefry.uniform(k2, (M, 2, T), rnp) + rnp.type(0.1)
+    state = (_mnmf.whiten_q(Xu), g[None], as_tensor(W[None], None, X.device),
+             as_tensor(H[None], None, X.device))
+    state = _mnmf.fastmnmf2_iterations(Xu, *state, n_iter)
+    return _mnmf_images(Xu, x_scale, state, 0, n_src)[0]
+
+
 def separate(
     mix,
     n_src=None,
@@ -720,19 +1099,24 @@ def separate(
     back -> iSTFT, on one device.
 
     ``algo``: "ip" (OverIVA/AuxIVA iterative projection), "iss" (source
-    steering; OverIVA-ISS when n_src < n_chan) or "ip2" (pairwise updates,
-    n_src >= 2; ``init_eig`` does not apply, as in the JAX package). The
-    JAX package's other algorithms raise NotImplementedError naming the
-    ROADMAP item that ports them.
+    steering; OverIVA-ISS when n_src < n_chan), "ip2" (pairwise updates,
+    n_src >= 2; ``init_eig`` does not apply, as in the JAX package), or
+    "fastmnmf"/"fastmnmf2" (the full-rank spatial model with n_chan slots,
+    Wiener images at mic 0 and no projection back; the n_src loudest are
+    returned; the NMF init is the JAX package's ``jax.random.PRNGKey(0)``
+    draw, from the port's copy ``utils/threefry.py``). The JAX package's
+    other algorithms raise NotImplementedError naming the ROADMAP item
+    that ports them.
     mix: (n_samples, n_chan) real. Returns (n_samples, n_src) real.
     """
-    if algo not in FAMILIES:
+    if algo not in FAMILIES + _MNMF_ALGOS:
+        names = "'ip', 'iss', 'ip2', 'fastmnmf' or 'fastmnmf2'"
         if algo in _UNPORTED_ALGOS:
             raise NotImplementedError(
                 f"separate(algo={algo!r}) is not ported yet (ROADMAP.md "
-                f"Queue 1 item {_UNPORTED_ALGOS[algo]}); use 'ip', 'iss' or 'ip2'"
+                f"Queue 1 item {_UNPORTED_ALGOS[algo]}); use {names}"
             )
-        raise ValueError(f"unknown algo {algo!r}; use 'ip', 'iss' or 'ip2'")
+        raise ValueError(f"unknown algo {algo!r}; use {names}")
     numpy_in = not isinstance(mix, torch.Tensor)
     hop = hop or nfft // 2
     n, M = mix.shape
@@ -743,9 +1127,13 @@ def separate(
     rdtype = to_torch_dtype(dtype or DEFAULT_DTYPE).to_real()
     x = as_tensor(mix, rdtype, resolve_device(device, mix))
     X = _stft.analysis(_stft.stft_pad(x, int(nfft), int(hop)), int(nfft), int(hop))
-    # init_eig applies to "ip" only, as in the JAX package's separate
-    Y, _ = run_family(X, N, int(n_iter), model, algo, init_eig=bool(init_eig) and algo == "ip")
-    Y = _proj.apply_projection_back(Y, X[:, :, 0])
+    if algo in _MNMF_ALGOS:
+        Y = _separate_mnmf(X, N, int(n_iter), algo)
+    else:
+        # init_eig applies to "ip" only, as in the JAX package's separate
+        Y, _ = run_family(X, N, int(n_iter), model, algo,
+                          init_eig=bool(init_eig) and algo == "ip")
+        Y = _proj.apply_projection_back(Y, X[:, :, 0])
     y = _stft.synthesis(Y, int(nfft), int(hop))
     start = nfft - hop
     return _output(y[start : start + n], numpy_in)

@@ -23,6 +23,8 @@ WCOV_MODES = ("f32", "f32x3", "bf16", "bf16pack")
 
 __all__ = [
     "WCOV_MODES",
+    "check_tf_wcov",
+    "check_wcov",
     "covariance",
     "weighted_covariance_all",
     "weighted_covariance_chunked",
@@ -92,10 +94,16 @@ def weighted_covariance_all(X, phi, wcov: str = "f32", chunk=None):
     return torch.einsum("ktfm,tfn->kfmn", Xw, X.conj()) / T
 
 
-def weighted_covariance_tf(X, w_tf, wcov: str = "f32"):
-    """Per-(t,f) weighted covariance (the ILRMA / FastMNMF families):
-    V[f] = (1/T) sum_t w[t,f] x x^H. X: (T, F, M), w_tf: (T, F) -> (F, M, M).
-    """
+def check_wcov(wcov):
+    """Raise ValueError unless ``wcov`` is one of :data:`WCOV_MODES`."""
+    if str(wcov) not in WCOV_MODES:
+        raise ValueError(f"wcov must be one of {WCOV_MODES}, got {wcov!r}")
+
+
+def check_tf_wcov(wcov):
+    """Raise ValueError unless ``wcov`` is a tier of
+    :func:`weighted_covariance_tf` (every tier but ``"bf16pack"``)."""
+    check_wcov(wcov)
     if wcov == "bf16pack":
         # the packed kernel only implements the per-source phi weighting of
         # weighted_covariance_all; running exact f32 here would mislabel it
@@ -104,6 +112,13 @@ def weighted_covariance_tf(X, w_tf, wcov: str = "f32"):
             "IP epoch path; use wcov='bf16' for the per-(t,f)-weighted "
             "families"
         )
+
+
+def weighted_covariance_tf(X, w_tf, wcov: str = "f32"):
+    """Per-(t,f) weighted covariance (the ILRMA / FastMNMF families):
+    V[f] = (1/T) sum_t w[t,f] x x^H. X: (T, F, M), w_tf: (T, F) -> (F, M, M).
+    """
+    check_tf_wcov(wcov)
     T = X.shape[0]
     if wcov == "bf16":
         return _bf16_contract(X, w_tf[:, :, None], "tfm,tfn->fmn") / T

@@ -3,20 +3,26 @@
 Copies of the functions of ``overiva_tpu/oracle/`` that the port needs, with
 the same names, so that the port imports nothing of the JAX package:
 the STFT (``analysis``, ``synthesis``, ``stft_pad``, ``hann``,
-``synthesis_window``), the OverIVA, AuxIVA-ISS, OverIVA-ISS, IP2, FIVE and
-OGIVE oracles with their activations and projection back.
-``tests/test_torch_oracle_copy.py`` holds each one bit for bit against its
-twin.
+``synthesis_window``), the OverIVA, AuxIVA, AuxIVA-ISS, OverIVA-ISS, IP2,
+FIVE, OGIVE, ILRMA, FastMNMF1/2 and SparseAuxIVA oracles with their
+activations and projection back (the SparseAuxIVA helpers ``select_bins``,
+``sparir`` and ``_resolve_n_bins`` and the FastMNMF ``_wiener`` live in
+their modules). ``tests/test_torch_oracle_copy.py`` holds each one bit for
+bit against its twin.
 """
 
+from .auxiva import auxiva
 from .auxiva_iss import auxiva_iss
+from .fastmnmf2 import fastmnmf, fastmnmf2, fastmnmf2_loglik
 from .five import five
+from .ilrma import ilrma
 from .models import EPS, activations, align_eigvec_phase
 from .ogive import ogive
 from .overiva import overiva
 from .overiva_ip2 import auxiva_ip2, overiva_ip2
 from .overiva_iss import overiva_iss
 from .projection import apply_projection_back, projection_back
+from .sparseauxiva import sparseauxiva
 from .stft import analysis, hann, stft_pad, synthesis, synthesis_window
 
 __all__ = [
@@ -25,15 +31,21 @@ __all__ = [
     "align_eigvec_phase",
     "analysis",
     "apply_projection_back",
+    "auxiva",
     "auxiva_ip2",
     "auxiva_iss",
+    "fastmnmf",
+    "fastmnmf2",
+    "fastmnmf2_loglik",
     "five",
     "hann",
+    "ilrma",
     "ogive",
     "overiva",
     "overiva_ip2",
     "overiva_iss",
     "projection_back",
+    "sparseauxiva",
     "stft_pad",
     "synthesis",
     "synthesis_window",

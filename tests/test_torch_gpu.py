@@ -320,3 +320,66 @@ def test_ogive_early_exit_on_card_matches_cpu(cuda):
     Y_cpu, e_cpu = api.ogive_batch(Xb, device="cpu", **kw)
     assert e_gpu.tolist() == e_cpu.tolist()
     assert np.abs(Y_gpu - Y_cpu).max() <= 1e-7 * np.abs(Y_cpu).max()
+
+
+@pytest.mark.parametrize(
+    "algo,kw,tol",
+    [
+        ("ilrma", {"n_iter": 6}, 1e-9),
+        # the library eigh of FastMNMF's whitening start, as for FIVE
+        ("fastmnmf2", {"n_src": 3, "n_iter": 4}, 1e-7),
+        ("fastmnmf", {"n_src": 3, "n_iter": 4, "n_q_sweeps": 2}, 1e-7),
+        ("sparseauxiva", {"n_iter": 6, "lasso_iter": 40}, 1e-7),
+        ("ilrma_batch", {"n_iter": 4}, 1e-9),
+        ("fastmnmf2_batch", {"n_src": 2, "n_iter": 3}, 1e-7),
+        ("sparseauxiva_batch", {"n_iter": 4, "lasso_iter": 30}, 1e-7),
+    ],
+)
+def test_tf_family_on_card_matches_cpu(cuda, algo, kw, tol):
+    """complex128: ILRMA, FastMNMF1/2 and SparseAuxIVA (and batch forms) on
+    the card against the same run on the CPU."""
+    rng = np.random.default_rng(9)
+    T, F, M = 64, 65, 4
+    shape = (2, T, F, M) if algo.endswith("_batch") else (T, F, M)
+    X = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    fn = getattr(api, algo)
+    Y_gpu = fn(torch.from_numpy(X).to(cuda), dtype=np.complex128, **kw)
+    assert Y_gpu.device.type == "cuda"
+    Y_cpu = fn(X, dtype=np.complex128, device="cpu", **kw)
+    err = np.abs(Y_gpu.cpu().numpy() - Y_cpu).max() / np.abs(Y_cpu).max()
+    assert err <= tol, err
+
+
+def test_separate_fastmnmf_on_card_matches_cpu(cuda):
+    rng = np.random.default_rng(10)
+    mix = rng.standard_normal((6000, 3))
+    for algo in ("fastmnmf", "fastmnmf2"):
+        kw = dict(n_src=2, nfft=256, n_iter=4, algo=algo, dtype=np.complex128)
+        y_gpu = api.separate(mix, device=cuda, **kw)
+        y_cpu = api.separate(mix, device="cpu", **kw)
+        assert np.abs(y_gpu - y_cpu).max() <= 1e-7 * np.abs(y_cpu).max()
+
+
+def test_sparseauxiva_bf16pack_launches(cuda):
+    """bf16pack runs the packed kernel once an epoch in both IP phases (the
+    subset of F / 4 bins, then the polish over all F), never with f32, nor
+    in ILRMA or FastMNMF. (At complex64 the polish after the LASSO
+    reconstruction moves a few percent for rounding alone, so the check on
+    the numbers is the all-bins run, which is AuxIVA's path.)"""
+    X, _ = _separable_mixture(11, M=4, N=4)
+    before = twp.wcov_packed.launches
+    Y_pk = api.sparseauxiva(X, n_iter=6, polish_iter=3, lasso_iter=40, wcov="bf16pack",
+                            device=cuda)
+    assert twp.wcov_packed.launches == before + 9
+    assert np.isfinite(Y_pk).all()
+    api.sparseauxiva(X, n_iter=6, polish_iter=3, lasso_iter=40, device=cuda)
+    assert twp.wcov_packed.launches == before + 9
+    Y_all = api.sparseauxiva(X, S=np.arange(X.shape[1]), n_iter=4, wcov="bf16pack",
+                             device=cuda)
+    assert twp.wcov_packed.launches == before + 13  # all bins: no polish
+    Y_aux = api.auxiva(X, n_iter=4, wcov="bf16pack", device=cuda)
+    assert np.linalg.norm(Y_all - Y_aux) <= 1e-6 * np.linalg.norm(Y_aux)
+    before = twp.wcov_packed.launches
+    for algo in ("ilrma", "fastmnmf2"):
+        getattr(api, algo)(X, n_iter=2, device=cuda)
+    assert twp.wcov_packed.launches == before

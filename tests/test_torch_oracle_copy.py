@@ -10,6 +10,7 @@ imports nothing of the JAX package. Each copy is held bit for bit
 """
 
 import ast
+import importlib
 from pathlib import Path
 
 import numpy as np
@@ -20,6 +21,21 @@ import overiva_tpu.oracle as joracle
 import overiva_tpu.oracle.models as jmodels
 import overiva_tpu_torch.metrics as tmetrics
 import overiva_tpu_torch.oracle as toracle
+
+# the modules themselves: the packages export functions of the same names
+jfastmnmf2 = importlib.import_module("overiva_tpu.oracle.fastmnmf2")
+jsparse = importlib.import_module("overiva_tpu.oracle.sparseauxiva")
+tfastmnmf2 = importlib.import_module("overiva_tpu_torch.oracle.fastmnmf2")
+tsparse = importlib.import_module("overiva_tpu_torch.oracle.sparseauxiva")
+# each copied entry point's twin (the JAX package's oracle package does not
+# export ilrma)
+JTWINS = {
+    "auxiva": joracle.auxiva,
+    "ilrma": importlib.import_module("overiva_tpu.oracle.ilrma").ilrma,
+    "fastmnmf": joracle.fastmnmf,
+    "fastmnmf2": joracle.fastmnmf2,
+    "sparseauxiva": joracle.sparseauxiva,
+}
 
 from helpers import make_mixture
 
@@ -127,6 +143,48 @@ def test_family_oracles_bit_for_bit(X4, name, kw):
     _equal(tuple(snaps_t), tuple(snaps_j))
 
 
+@pytest.mark.parametrize(
+    "name,kw",
+    [
+        ("auxiva", {"n_iter": 4, "model": "gauss"}),
+        ("ilrma", {"n_iter": 4, "seed": 3, "n_components": 3}),
+        ("fastmnmf2", {"n_src": 2, "n_iter": 3, "seed": 5}),
+        ("fastmnmf", {"n_src": 2, "n_iter": 3, "seed": 5, "n_q_sweeps": 2, "init": "eye"}),
+        ("sparseauxiva", {"n_iter": 4, "lasso_iter": 30}),
+        ("sparseauxiva", {"n_iter": 4, "n_bins": 20, "polish_iter": 0, "lasso_iter": 30,
+                          "filter_taps": 16, "acausal_taps": 4}),
+    ],
+)
+def test_tf_family_oracles_bit_for_bit(X4, name, kw):
+    """The AuxIVA, ILRMA, FastMNMF1/2 and SparseAuxIVA oracles, with their
+    filters (FastMNMF: the model (Q, g, W, H)) and callback snapshots."""
+    X = X4[:, :, :2] if name == "sparseauxiva" else X4
+    got = getattr(toracle, name)(X, return_filters=True, **kw)
+    want = JTWINS[name](X, return_filters=True, **kw)
+    _equal(got, want)
+    snaps_t, snaps_j = [], []
+    getattr(toracle, name)(X, callback=snaps_t.append, callback_every=2, **kw)
+    JTWINS[name](X, callback=snaps_j.append, callback_every=2, **kw)
+    assert len(snaps_t) == len(snaps_j) >= 2
+    _equal(tuple(snaps_t), tuple(snaps_j))
+    if name.startswith("fastmnmf"):
+        _equal(toracle.fastmnmf2_loglik(X, *got[1]), jfastmnmf2.fastmnmf2_loglik(X, *got[1]))
+        _equal(tfastmnmf2._wiener(X, got[1][0], got[1][1], got[1][2] @ got[1][3], 1),
+               jfastmnmf2._wiener(X, got[1][0], got[1][1], got[1][2] @ got[1][3], 1))
+
+
+def test_sparse_helpers_bit_for_bit(X4):
+    for k in (8, 16, 40):
+        _equal(tsparse.select_bins(X4, k), jsparse.select_bins(X4, k))
+    for n_bins in (None, 0.5, 12):
+        _equal(tsparse._resolve_n_bins(n_bins, 65, 3), jsparse._resolve_n_bins(n_bins, 65, 3))
+    rng = np.random.default_rng(9)
+    B = rng.standard_normal((3, 20)) + 1j * rng.standard_normal((3, 20))
+    S = np.sort(rng.choice(65, 20, replace=False))
+    support = np.r_[np.arange(30), np.arange(128 - 6, 128)]
+    _equal(tsparse.sparir(B, S, 128, support, 0.05, 40), jsparse.sparir(B, S, 128, support, 0.05, 40))
+
+
 def test_bss_eval_sources_bit_for_bit():
     """A 3-source case, with and without the permutation search."""
     rng = np.random.default_rng(6)
@@ -177,7 +235,8 @@ def _imported_modules(path):
 
 def test_port_never_imports_the_jax_package():
     files = _port_sources()
-    for name in ("overiva", "auxiva_iss", "overiva_iss", "overiva_ip2", "five", "ogive"):
+    for name in ("overiva", "auxiva_iss", "overiva_iss", "overiva_ip2", "five", "ogive",
+                 "auxiva", "ilrma", "fastmnmf2", "sparseauxiva"):
         assert REPO / "overiva_tpu_torch" / "oracle" / f"{name}.py" in files
     offenders = {}
     for path in files:

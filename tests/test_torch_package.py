@@ -25,14 +25,17 @@ def test_package_never_imports_jax():
         "from overiva_tpu_torch import api, _build\n"
         "from overiva_tpu_torch.models import auxiva_iss, auxiva_pca, five, ogive\n"
         "from overiva_tpu_torch.models import overiva, overiva_ip2\n"
+        "from overiva_tpu_torch.models import fastmnmf2, ilrma, sparseauxiva\n"
         "from overiva_tpu_torch.ops import covariance, linalg, projection, stft\n"
         "from overiva_tpu_torch.ops import update_rows, wcov_packed\n"
-        "from overiva_tpu_torch.utils import convert\n"
+        "from overiva_tpu_torch.utils import convert, threefry\n"
         "from overiva_tpu_torch import metrics, oracle\n"
         "from overiva_tpu_torch.metrics import bss_eval\n"
         "from overiva_tpu_torch.oracle import models, overiva, projection, stft\n"
         "from overiva_tpu_torch.oracle import auxiva_iss, five, ogive, overiva_ip2\n"
         "from overiva_tpu_torch.oracle import overiva_iss\n"
+        "import overiva_tpu_torch.oracle.auxiva, overiva_tpu_torch.oracle.ilrma\n"
+        "import overiva_tpu_torch.oracle.fastmnmf2, overiva_tpu_torch.oracle.sparseauxiva\n"
         "assert overiva_tpu_torch.overiva is api.overiva\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "jax_pkg = sorted(m for m in sys.modules\n"
@@ -110,6 +113,20 @@ def test_numpy_input_needs_device_without_a_card(monkeypatch):
         "five_batch": lambda **kw: api.five_batch(X[None], n_iter=2, **kw),
         "auxiva_pca_batch": lambda **kw: api.auxiva_pca_batch(X[None], n_src=2, n_iter=2,
                                                               inner="iss", **kw),
+        "ilrma": lambda **kw: api.ilrma(X, n_iter=2, **kw),
+        "ilrma_batch": lambda **kw: api.ilrma_batch(X[None], n_iter=2, **kw),
+        "fastmnmf2": lambda **kw: api.fastmnmf2(X, n_src=2, n_iter=2, **kw),
+        "fastmnmf": lambda **kw: api.fastmnmf(X, n_src=2, n_iter=2, **kw),
+        "fastmnmf2_batch": lambda **kw: api.fastmnmf2_batch(X[None], n_src=2, n_iter=2, **kw),
+        "fastmnmf_batch": lambda **kw: api.fastmnmf_batch(X[None], n_iter=2, **kw),
+        "sparseauxiva": lambda **kw: api.sparseauxiva(X[:, :, :2], n_iter=2, lasso_iter=5,
+                                                      **kw),
+        "sparseauxiva_batch": lambda **kw: api.sparseauxiva_batch(
+            X[None, :, :, :2], n_bins=2, n_iter=2, lasso_iter=5, **kw),
+        "separate fastmnmf": lambda **kw: api.separate(mix, n_src=2, nfft=256, n_iter=2,
+                                                       algo="fastmnmf", **kw),
+        "separate fastmnmf2": lambda **kw: api.separate(mix, n_src=2, nfft=256, n_iter=2,
+                                                        algo="fastmnmf2", **kw),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match='device="cpu"'):
