@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch port on one CUDA card: builds the kernels,
-checks them, drives the OverIVA paths at full width and checks the results.
+checks them, drives every family at full width and checks the results.
 
     python3 chip_smoke.py [--seed N]
 
@@ -55,7 +55,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    SparseAuxIVA's bf16pack tier (20 + 3 launches, within 0.3 dB mean SIR of
    f32), each family's time with its device ops an epoch and busy share,
    SparseAuxIVA's three phases apart, and ``separate(algo="fastmnmf2")``
-   at three lengths.
+   at three lengths;
+9. joint: a reverberant room (``make_reverb_mixture``, 0.4 s RT60) at the
+   headline widths, T=512. WPE, T-ISS, T-IP and ILRMA-T in complex128 on
+   the card against the float64 oracles element by element (nfft 1024,
+   128 frames, the JAX package's tolerances) and the ``tiss-df`` /
+   ``tip-df`` registry names within 1e-6; in complex64 through iSTFT and
+   bss_eval against the oracle at ``examples/parity_check.py``'s joint
+   settings (gated at 0.1 dB); times at T=512 (WPE, WPE -> OverIVA,
+   T-ISS, T-IP at f32 and bf16, ILRMA-T); the 30 registry names through
+   ``__call__`` and ``run_batch`` on the card; ``separate(algo="tiss"|
+   "tip"|"ilrma_t")`` and ``separate(wpe=True)`` at three lengths; both
+   kernels' counters zeroed before each joint run and read at 0 after.
+
+Each phase ends with a ``[time]`` line, its wall in seconds.
 
 The second-to-last line is a JSON object of the kernels, the last line
 ``{"ok": true, "device": {...}}``. The float64 oracle and bss_eval are the
@@ -543,16 +556,7 @@ def phase_fused_run(dev, mix, images, main):
     enqueue = time.perf_counter() - t0
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fused_overiva()
-        torch.cuda.synchronize()
-    # only the kernels' own entries: a CPU op's entry repeats the device
-    # time of the kernels it launched
-    busy = sum(
-        e.self_device_time_total for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    ) / 1e3
+    _, busy = device_profile(fused_overiva)
     log(
         f"[fused] host enqueue {enqueue * 1e3:.2f} ms of a {wall * 1e3:.2f} ms synced run "
         f"({100 * enqueue / wall:.1f} %); device busy (profiler) "
@@ -631,11 +635,11 @@ def ogive_exit_tol(X, cap, every):
 
 def device_profile(fn):
     """(device ops, device-busy ms) of one synchronised call of ``fn`` under
-    torch.profiler, counting the CUDA entries only (a CPU op's entry
-    repeats the device time of the kernels it launched)."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.profiler, tracing the card's activity only: with the CPU traced
+    too, long runs read the same counts and busy times, but reading the
+    trace takes longer and a short run can lose its device events."""
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     evs = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1067,20 +1071,270 @@ def phase_tf_families(dev, mix, images, X64, main):
     return sp_launches
 
 
-def phase_requests(dev, seed, algo="ip", n_iter=30, tag="requests"):
+# phase 9: the joint dereverberation family. The room: every response a
+# direct path plus a tail that decays by 60 dB in JOINT_RT60 seconds at
+# JOINT_FS, so the delayed taps have work.
+JOINT_FS, JOINT_RT60 = 16000, 0.4
+JOINT_T = 512  # frames of the timed runs (bench.py's joint rows)
+# the c128 rows: nfft 1024, 128 frames of the same room, a few epochs, so
+# that the f64 oracle's CPU time stays near a minute (T-IP's 48-dim
+# covariances dominate it)
+C128_NFFT, C128_T = 1024, 128
+JOINT_C128 = [
+    ("wpe", {"taps": 5, "delay": 2, "n_iter": 2}),
+    ("tiss", {"n_src": N, "taps": 5, "delay": 2, "n_iter": 4}),
+    ("tip", {"n_src": N, "taps": 5, "delay": 2, "n_iter": 2, "warm_iter": 2}),
+    ("ilrma_t", {"taps": 5, "delay": 2, "n_iter": 4}),
+]
+# the c64 quality rows: examples/parity_check.py's joint rows (PARITY.md,
+# gated at 0.1 dB) on a 4 s clip of the same room at nfft 1024: 5 mics
+# (ILRMA-T, determined: 3), the room's 3 talkers
+QUALITY_NFFT, QUALITY_SAMPLES, QUALITY_M = 1024, 64000, 5
+
+
+def make_reverb_mixture(rng, n_src, n_mics, n_samples, snr_db=30.0):
+    """Convolutive mixture in a reverberant room: each response is
+    make_mixture's 8-tap early part (a dominant direct path) and an
+    exponentially decaying noise tail of JOINT_RT60 seconds (60 dB), with
+    half the early part's energy. Returns (mix (n, M), images (n_src, n,
+    M))."""
+    from scipy.signal import fftconvolve
+
+    src = make_sources(rng, n_src, n_samples)
+    L = int(JOINT_RT60 * JOINT_FS)
+    t = np.arange(L)
+    H = rng.standard_normal((n_mics, n_src, L)) * np.exp(-np.log(1e3) * t / L)
+    H[:, :, :8] = rng.standard_normal((n_mics, n_src, 8))
+    H[:, :, 0] += 2.0 * np.sign(H[:, :, 0])
+    early = np.sum(H[:, :, :8] ** 2, axis=2, keepdims=True)
+    tail = np.sum(H[:, :, 8:] ** 2, axis=2, keepdims=True)
+    H[:, :, 8:] *= np.sqrt(0.5 * early / tail)
+    images = np.stack([
+        fftconvolve(src[k][None, :], H[:, k, :], axes=1)[:, :n_samples].T
+        for k in range(n_src)
+    ])
+    mix = images.sum(axis=0)
+    noise = rng.standard_normal(mix.shape)
+    noise *= np.linalg.norm(mix) / np.linalg.norm(noise) * 10 ** (-snr_db / 20)
+    return mix + noise, images
+
+
+def phase_joint(dev, seed, main):
+    """WPE, T-ISS, T-IP and ILRMA-T in a reverberant room: c128 against the
+    f64 oracle copies element by element (and the -df registry names), c64
+    quality through iSTFT and bss_eval against the f64 oracle (PARITY.md's
+    joint rows), times at the headline (T=512), the 30 registry names on
+    the card, and both kernels' counters at 0 on every joint run. Returns
+    the launches of (wcov_packed, update_rows) over the joint runs."""
+    from overiva_tpu_torch import api, oracle
+    from overiva_tpu_torch.ops.update_rows import update_rows
+    from overiva_tpu_torch.ops.wcov_packed import wcov_packed
+    from overiva_tpu_torch.registry import ALGORITHMS, applicable
+
+    t_mark = [time.perf_counter()]
+
+    def mark(tag):
+        now = time.perf_counter()
+        log(f"[time] joint: {tag} {now - t_mark[0]:.1f} s")
+        t_mark[0] = now
+
+    rng = np.random.default_rng(seed + 9)
+    mix, images = make_reverb_mixture(rng, N, M, samples_for_frames(JOINT_T))
+    mark("the room's mixture")
+    totals = [0, 0]
+
+    def counted(fn):
+        """fn() with both counters zeroed just before and read just after:
+        a joint run launches neither kernel."""
+        wcov_packed.launches = 0
+        update_rows.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = (wcov_packed.launches, update_rows.launches)
+        totals[0] += got[0]
+        totals[1] += got[1]
+        if got != (0, 0):
+            raise AssertionError(f"a joint run launched (wcov_packed, update_rows) {got}")
+        for Y in out if isinstance(out, tuple) else (out,) if out is not None else ():
+            if not bool(torch.isfinite(torch.as_tensor(Y)).all()):
+                raise AssertionError("non-finite joint output")
+        return out
+
+    # --- c128 on the card against the f64 oracle, element-wise, on the
+    # complex64-rounded STFT, which the -df rows share
+    hop = C128_NFFT // 2
+    n1 = (C128_T - 1) * hop
+    X1 = oracle.analysis(oracle.stft_pad(mix[:n1], C128_NFFT, hop), C128_NFFT, hop)
+    X1 = X1.astype(np.complex64).astype(np.complex128)
+    X1_dev = torch.from_numpy(X1).to(dev)
+    oracle_out = {}
+    for name, kw in JOINT_C128:
+        filt = {} if name == "wpe" else {"return_filters": True}
+        t0 = time.perf_counter()
+        got = counted(lambda: getattr(api, name)(X1_dev, dtype=torch.complex128, **kw, **filt))
+        t_port = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = getattr(oracle, name)(X1, **kw, **filt)
+        t_oracle = time.perf_counter() - t0
+        got, want = (got, want) if filt else ((got,), (want,))
+        oracle_out[name] = want[0]
+        parts, bad = [], False
+        for q, a, b in zip("YP", got, want):
+            a = a.cpu().numpy()
+            d = np.abs(a - b)
+            if name == "wpe":  # tests/test_wpe.py: 1e-8 of the largest output
+                outside = int(np.sum(d > 1e-8 * np.abs(b).max()))
+            else:
+                outside = int(np.sum(d > 1e-8 + 1e-6 * np.abs(b)))
+            parts.append(f"{q} {d.max() / np.abs(b).max():.2e} ({outside} of {b.size} outside)")
+            bad |= a.shape != b.shape or outside > 0
+        line = (
+            f"[joint] c128 {name} {kw} (X {X1.shape}) vs f64 oracle: max|d| / max|oracle| "
+            + ", ".join(parts)
+            + (" (atol 1e-8 max|Y|)" if name == "wpe" else " (rtol 1e-6, atol 1e-8)")
+            + f"; port {t_port:.2f} s, oracle {t_oracle:.2f} s"
+        )
+        if bad:
+            raise AssertionError(line)
+        log(line)
+    # the certification names: complex128 on the complex64 input, complex64
+    # out, within 1e-6 of the same oracle runs
+    for name in ("tiss-df", "tip-df"):
+        kw = dict(JOINT_C128[1 if name == "tiss-df" else 2][1])
+        Y = counted(lambda: ALGORITHMS[name](X1_dev.to(torch.complex64), **kw))
+        Yo = oracle_out[name[:-3]]
+        d = np.abs(Y.cpu().numpy() - Yo).max() / np.abs(Yo).max()
+        line = (f"[joint] {name} {kw}: complex64 out {Y.dtype == torch.complex64}, "
+                f"max|d| / max|oracle| {d:.2e} (tol 1e-6)")
+        if not (d < 1e-6 and Y.dtype == torch.complex64):
+            raise AssertionError(line)
+        log(line)
+
+    mark("c128 rows")
+
+    # --- c64 quality through iSTFT and bss_eval against the f64 oracle
+    hop = QUALITY_NFFT // 2
+    nq = QUALITY_SAMPLES
+    Xq = oracle.analysis(oracle.stft_pad(mix[:nq], QUALITY_NFFT, hop), QUALITY_NFFT, hop)
+    Xq5, Xq3 = Xq[:, :, :QUALITY_M], Xq[:, :, :N]
+    Xq5_dev = torch.from_numpy(Xq5.astype(np.complex64)).to(dev)
+    Xq3_dev = torch.from_numpy(Xq3.astype(np.complex64)).to(dev)
+    q_images = images[:, :nq]
+    rows = [
+        ("tiss", lambda a, X5, X3: a.tiss(X5, n_src=N, taps=3, delay=2, n_iter=15)),
+        ("tip", lambda a, X5, X3: a.tip(X5, n_src=N, taps=3, delay=2, n_iter=5, warm_iter=5)),
+        ("ilrma_t", lambda a, X5, X3: a.ilrma_t(X3, taps=3, delay=2, n_iter=15, seed=5)),
+        ("wpe+overiva", lambda a, X5, X3: a.overiva(a.wpe(X5, taps=3, delay=2, n_iter=2),
+                                                   n_src=N, n_iter=15)),
+    ]
+
+    def quality(Y):
+        y = oracle.synthesis(np.asarray(Y), QUALITY_NFFT, hop)[QUALITY_NFFT - hop:][:nq]
+        return score(y, q_images, nq)
+
+    for name, run in rows:
+        Y = counted(lambda: run(api, Xq5_dev, Xq3_dev)).cpu().numpy()
+        sdr, sir = quality(Y)
+        sdr_o, sir_o = quality(run(oracle, Xq5, Xq3))
+        d_sdr, d_sir = np.abs(sdr - sdr_o).max(), np.abs(sir - sir_o).max()
+        line = (
+            f"[joint] c64 {name} (X {Xq5.shape if name != 'ilrma_t' else Xq3.shape}): SDR "
+            f"{np.round(sdr, 3)} SIR {np.round(sir, 3)}, oracle SDR {np.round(sdr_o, 3)} SIR "
+            f"{np.round(sir_o, 3)}; max|dSDR| {d_sdr:.4f} dB, max|dSIR| {d_sir:.4f} dB (tol 0.1)"
+        )
+        if not (d_sdr < 0.1 and d_sir < 0.1):
+            # the reference's own complex64 run, for the record, then fail
+            sdr_32, sir_32 = quality(run(oracle, Xq5.astype(np.complex64),
+                                         Xq3.astype(np.complex64)))
+            log(line + f"; the oracle on the complex64 input: SDR {np.round(sdr_32, 3)} SIR "
+                f"{np.round(sir_32, 3)}")
+            raise AssertionError(line)
+        log(line)
+
+    mark("c64 quality rows")
+
+    # --- times at the headline: device-resident STFT, T=512
+    x = torch.from_numpy(oracle.stft_pad(mix, NFFT, HOP)).to(dev)
+    X = api.stft_analysis(x, NFFT, device=dev)
+    if X.shape != (JOINT_T, NFFT // 2 + 1, M):
+        raise AssertionError(f"joint STFT shape {tuple(X.shape)}")
+    runs = [
+        ("wpe (taps 5, delay 2)", 2, lambda k: api.wpe(X, taps=5, delay=2, n_iter=k)),
+        ("wpe 2 it -> overiva", 30,
+         lambda k: api.overiva(api.wpe(X, taps=5, delay=2, n_iter=2), n_src=N, n_iter=k)),
+        ("tiss", 30, lambda k: api.tiss(X, n_src=N, n_iter=k)),
+        ("tip f32, after 10 T-ISS epochs", 10, lambda k: api.tip(X, n_src=N, n_iter=k)),
+        ("tip bf16, after 10 T-ISS epochs", 10,
+         lambda k: api.tip(X, n_src=N, n_iter=k, wcov="bf16")),
+        ("ilrma_t", 30, lambda k: api.ilrma_t(X, n_iter=k)),
+    ]
+    for name, k, fn in runs:
+        Y = counted(lambda: fn(k))
+        if Y.shape[:2] != X.shape[:2]:
+            raise AssertionError(f"{name}: output shape {tuple(Y.shape)}")
+        t = best_wall_s(lambda: fn(k))
+        ops_k, busy = device_profile(lambda: fn(k))
+        ops_0, _ = device_profile(lambda: fn(0))
+        log(
+            f"[joint] {name} {k} it (T={X.shape[0]}, F={X.shape[1]}, M={M}, N={N}, c64): "
+            f"{t * 1e3:.2f} ms best of 3 = {t * 1e3 / k:.3f} ms an epoch; device ops an epoch "
+            f"{(ops_k - ops_0) / k:.1f} (a run of 0 epochs: {ops_0}); device busy (profiler) "
+            f"{busy:.2f} ms = {100 * busy / (t * 1e3):.1f} % of the best wall; api.overiva "
+            f"30 it (T=128) {main['eager_s'] * 1e3:.2f} ms"
+        )
+
+    mark("timed runs")
+
+    # --- the 30 registry names on the card: __call__ and run_batch
+    rng_r = np.random.default_rng(seed + 10)
+    mix_r = make_mixture(rng_r, 3, 3, 16000)[0]
+    Xr = api.stft_analysis(torch.from_numpy(mix_r).to(dev), 256, device=dev)
+    T, F, _ = Xr.shape
+    t0 = time.perf_counter()
+    for name, spec in sorted(ALGORITHMS.items()):
+        n_src = next(n for n in (1, 2, 3) if applicable(name, n, 3))
+        kw = {"n_iter": min(spec.defaults.get("n_iter", 3), 40 if spec.single_output else 3)}
+        kw |= {"warm_iter": 2} if "warm_iter" in spec.defaults else {}
+        kw |= {"lasso_iter": 20} if name == "sparseauxiva" else {}
+        Y = counted(lambda: spec(Xr, n_src=n_src, **kw))
+        Yb = counted(lambda: spec.run_batch(torch.stack([Xr, Xr.flip(0)]), n_src=n_src, **kw))
+        if (Y.shape != (T, F, n_src) or Yb.shape != (2, T, F, n_src)
+                or Y.device.type != dev.type or Yb.device.type != dev.type):
+            raise AssertionError(f"registry {name}: {tuple(Y.shape)}, {tuple(Yb.shape)}")
+    log(
+        f"[joint] registry: all {len(ALGORITHMS)} names ran __call__ and run_batch on the card "
+        f"(X {tuple(Xr.shape)}, c64, outputs on cuda, finite, no kernel launch) in "
+        f"{time.perf_counter() - t0:.2f} s"
+    )
+
+    mark("registry")
+
+    # --- requests, samples in and out
+    for algo, n_iter, opts in [("tiss", 30, {}), ("tip", 10, {}), ("ilrma_t", 30, {}),
+                               ("ip", 30, {"wpe": True})]:
+        counted(lambda: phase_requests(dev, seed, algo, n_iter, "joint", **opts))
+    mark("requests")
+    return tuple(totals)
+
+
+def phase_requests(dev, seed, algo="ip", n_iter=30, tag="requests", **opts):
+    """``separate(algo=...)`` on three clips of 64, 128 and 256 frames,
+    after one warm-up call; ``opts`` go to ``separate`` as they are."""
     from overiva_tpu_torch import api
 
     rng = np.random.default_rng(seed + 1)
     clips = [make_mixture(rng, N, M, samples_for_frames(f))[0] for f in (64, 128, 256)]
-    api.separate(clips[0], n_src=N, n_iter=n_iter, algo=algo, device=dev)  # warm-up
+    api.separate(clips[0], n_src=N, n_iter=n_iter, algo=algo, device=dev, **opts)  # warm-up
     for clip in clips:
         t0 = time.perf_counter()
-        y = api.separate(clip, n_src=N, n_iter=n_iter, algo=algo, device=dev)
+        y = api.separate(clip, n_src=N, n_iter=n_iter, algo=algo, device=dev, **opts)
         ms = (time.perf_counter() - t0) * 1e3
         if y.shape != (clip.shape[0], N) or not np.isfinite(y).all():
             raise AssertionError(f"bad separate output {y.shape}")
         log(
-            f"[{tag}] separate(algo={algo!r}, {n_iter} it) {clip.shape[0]} samples x "
+            f"[{tag}] separate(algo={algo!r}, {n_iter} it"
+            + "".join(f", {k}={v!r}" for k, v in opts.items())
+            + f") {clip.shape[0]} samples x "
             f"{M} mics ({clip.shape[0] // HOP + 1} frames): {ms:.1f} ms, "
             "numpy in and out"
         )
@@ -1095,23 +1349,34 @@ def main():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     from overiva_tpu_torch import oracle
 
-    dev = phase_device()
-    phase_build()
-    kernel = phase_kernel(dev, seed)
-    fused = phase_fused_kernel(dev, seed)
+    phase_t0 = [time.perf_counter()]
+
+    def timed(tag, fn, *args, **kw):
+        """fn(*args, **kw), then its wall on a [time] line."""
+        out = fn(*args, **kw)
+        now = time.perf_counter()
+        log(f"[time] {tag} {now - phase_t0[0]:.1f} s")
+        phase_t0[0] = now
+        return out
+
+    dev = timed("device", phase_device)
+    timed("build", phase_build)
+    kernel = timed("kernel", phase_kernel, dev, seed)
+    fused = timed("fused kernel", phase_fused_kernel, dev, seed)
 
     rng = np.random.default_rng(seed)
     mix, images = make_mixture(rng, N, M, samples_for_frames(128))
     X64 = oracle.analysis(oracle.stft_pad(mix, NFFT, HOP), NFFT, HOP)
-    phase_trajectory(dev, X64)
-    main_path = phase_main_path(dev, mix, images, X64)
-    fused_launches = phase_fused_run(dev, mix, images, main_path)
-    phase_requests(dev, seed)
-    ip2_launches = phase_families(dev, mix, images, X64, main_path)
-    phase_requests(dev, seed, "iss", 30, "families")
-    phase_requests(dev, seed, "ip2", 10, "families")
-    sparse_launches = phase_tf_families(dev, mix, images, X64, main_path)
-    phase_requests(dev, seed, "fastmnmf2", 30, "tf-families")
+    timed("trajectory", phase_trajectory, dev, X64)
+    main_path = timed("main path", phase_main_path, dev, mix, images, X64)
+    fused_launches = timed("fused run", phase_fused_run, dev, mix, images, main_path)
+    timed("requests", phase_requests, dev, seed)
+    ip2_launches = timed("families", phase_families, dev, mix, images, X64, main_path)
+    timed("requests iss", phase_requests, dev, seed, "iss", 30, "families")
+    timed("requests ip2", phase_requests, dev, seed, "ip2", 10, "families")
+    sparse_launches = timed("tf-families", phase_tf_families, dev, mix, images, X64, main_path)
+    timed("requests fastmnmf2", phase_requests, dev, seed, "fastmnmf2", 30, "tf-families")
+    joint_launches = timed("joint", phase_joint, dev, seed, main_path)
 
     loaded = sorted(
         m for m in sys.modules
@@ -1129,6 +1394,7 @@ def main():
         **kernel,
         "ip2_launches": ip2_launches,
         "sparse_launches": sparse_launches,
+        "joint_launches": joint_launches[0],
     }, {
         "name": "update_rows",
         "route": "cuda",
@@ -1136,6 +1402,7 @@ def main():
         "replaces": "overiva_tpu/ops/pallas_epoch.py:248",
         "launches": fused_launches,
         **fused,
+        "joint_launches": joint_launches[1],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

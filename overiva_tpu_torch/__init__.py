@@ -10,12 +10,19 @@ to PyTorch on an NVIDIA H100. The public API mirrors ``overiva_tpu.api``:
     auxiva(...), projection_back(Y, ref), stft_synthesis(Y, nfft),
     auxiva_iss, overiva_iss, overiva_ip2, auxiva_ip2, ogive, five,
     ilrma, fastmnmf2, fastmnmf, sparseauxiva,
-    separate(mix, n_src, algo="ip"|"iss"|"ip2"|"fastmnmf"|"fastmnmf2"),
+    wpe, tiss, tip, ilrma_t (joint dereverberation + separation),
+    separate(mix, n_src, algo="ip"|"iss"|"ip2"|"tiss"|"tip"|"ilrma_t"|
+             "fastmnmf"|"fastmnmf2", wpe=None|True|dict),
     pca, auxiva_pca(inner="ip"|"iss"|"ip2"),
     stft_analysis_batch, stft_synthesis_batch and the batch forms
     overiva_batch, auxiva_iss_batch, overiva_iss_batch, overiva_ip2_batch,
     ogive_batch, five_batch, auxiva_pca_batch, ilrma_batch,
-    fastmnmf2_batch, fastmnmf_batch, sparseauxiva_batch
+    fastmnmf2_batch, fastmnmf_batch, sparseauxiva_batch, wpe_batch,
+    tiss_batch, tip_batch, ilrma_t_batch
+
+``overiva_tpu_torch.registry`` maps the 30 algorithm names of
+``overiva_tpu.registry`` (``get_algorithm(name)(X, n_src=...)``, and
+``run_batch`` for a (B, T, F, M) stack) to these functions.
 
 Inputs may be NumPy arrays or tensors. NumPy in gives NumPy out; a tensor
 in gives a tensor out, on the device the work ran on. Every public
@@ -39,12 +46,14 @@ _API = {
     for name in (
         "auxiva", "auxiva_ip2", "auxiva_iss", "auxiva_iss_batch", "auxiva_pca",
         "auxiva_pca_batch", "fastmnmf", "fastmnmf2", "fastmnmf2_batch",
-        "fastmnmf_batch", "five", "five_batch", "ilrma", "ilrma_batch", "ogive",
+        "fastmnmf_batch", "five", "five_batch", "ilrma", "ilrma_batch", "ilrma_t",
+        "ilrma_t_batch", "ogive",
         "ogive_batch", "overiva", "overiva_batch", "overiva_ip2",
         "overiva_ip2_batch", "overiva_iss", "overiva_iss_batch", "pca",
         "projection_back", "separate", "sparseauxiva", "sparseauxiva_batch",
         "stft_analysis", "stft_analysis_batch", "stft_synthesis",
-        "stft_synthesis_batch",
+        "stft_synthesis_batch", "tip", "tip_batch", "tiss", "tiss_batch", "wpe",
+        "wpe_batch",
     )
 }
 __all__ += sorted(_API)

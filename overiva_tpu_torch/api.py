@@ -1,8 +1,8 @@
-"""Public API: the IP family and the per-(t,f)-weighted families, NumPy or
-tensors in and out.
+"""Public API: the IP family, the per-(t,f)-weighted families and the joint
+dereverberation family, NumPy or tensors in and out.
 
-Counterpart of that slice of ``overiva_tpu/api.py``, with the same
-signatures and validation plus ``device=``:
+Counterpart of the batch entry points of ``overiva_tpu/api.py``, with the
+same signatures and validation plus ``device=``:
 
     stft_analysis(x, nfft) -> X            (n_frames, n_freq, n_chan)
     overiva(X, n_src, ...) -> Y [, W_hat]  (n_frames, n_freq, n_src)
@@ -13,12 +13,16 @@ signatures and validation plus ``device=``:
     pca(X, n_src), auxiva_pca(X, n_src, inner="ip"|"iss"|"ip2")
     ilrma, fastmnmf2, fastmnmf             per-(t,f)-weighted NMF models
     sparseauxiva                           IP on a bin subset + LASSO fill
-    separate(mix, n_src, algo="ip"|"iss"|"ip2"|"fastmnmf"|"fastmnmf2")
+    wpe                                    dereverberation (delayed prediction)
+    tiss, tip, ilrma_t                     joint dereverberation + separation
+    separate(mix, n_src, algo="ip"|"iss"|"ip2"|"tiss"|"tip"|"ilrma_t"|
+             "fastmnmf"|"fastmnmf2", wpe=None|True|dict)
                                            samples in, samples out
     stft_analysis_batch, stft_synthesis_batch, overiva_batch,
     auxiva_iss_batch, overiva_iss_batch, overiva_ip2_batch, ogive_batch,
     five_batch, auxiva_pca_batch, ilrma_batch, fastmnmf2_batch,
-    fastmnmf_batch, sparseauxiva_batch     a leading batch axis, written out
+    fastmnmf_batch, sparseauxiva_batch, wpe_batch, tiss_batch, tip_batch,
+    ilrma_t_batch                          a leading batch axis, written out
 
 A NumPy input gives a NumPy output; a tensor input gives a tensor on the
 device the work ran on. ``device`` defaults to the input tensor's device,
@@ -41,11 +45,15 @@ from .models import five as _five
 from .models import ilrma as _ilrma
 from .models import ogive as _ogive
 from .models import overiva as _core
+from .models import ilrma_t as _ilrma_t
 from .models import sparseauxiva as _sparse
+from .models import tip as _tip
+from .models import tiss as _tiss
 from .models.family import FAMILIES, chunked, run_family
 from .models.source_models import MODELS
 from .ops import projection as _proj
 from .ops import stft as _stft
+from .ops import wpe as _wpe
 from .ops.covariance import check_tf_wcov, check_wcov
 from .oracle.sparseauxiva import _resolve_n_bins
 from .utils import threefry
@@ -66,6 +74,8 @@ __all__ = [
     "five_batch",
     "ilrma",
     "ilrma_batch",
+    "ilrma_t",
+    "ilrma_t_batch",
     "ogive",
     "ogive_batch",
     "overiva",
@@ -83,12 +93,15 @@ __all__ = [
     "stft_analysis_batch",
     "stft_synthesis",
     "stft_synthesis_batch",
+    "tip",
+    "tip_batch",
+    "tiss",
+    "tiss_batch",
+    "wpe",
+    "wpe_batch",
 ]
 
 DEFAULT_DTYPE = torch.complex64
-# the other algorithms of overiva_tpu.api.separate, and the ROADMAP.md
-# Queue 1 item that ports each
-_UNPORTED_ALGOS = {"tiss": 14, "tip": 14, "ilrma_t": 14}
 _MNMF_ALGOS = ("fastmnmf", "fastmnmf2")
 _OGIVE_UPDATES = ("demix", "mix", "switching")
 
@@ -159,10 +172,48 @@ def _run(X, N, n_iter, algo, model, proj_back, return_filters, callback,
         callback=_scaled_callback(callback, X, numpy_in, out_dtype),
         callback_every=callback_every, **opts,
     )
+    return _outputs(Y, W, X, proj_back, return_filters, numpy_in, out_dtype)
+
+
+def _outputs(Y, W, X, proj_back, return_filters, numpy_in, out_dtype=None):
+    """An entry point's return: Y as :func:`_finish` gives it, with the
+    filters W (cast to ``out_dtype``) when ``return_filters``."""
     Y = _finish(Y, X, bool(proj_back), numpy_in, out_dtype)
     if return_filters:
         return Y, _output(W if out_dtype is None else W.to(out_dtype), numpy_in)
     return Y
+
+
+def _joint_df_guard(acc, dtype, cdtype, wcov=None):
+    """The ``acc`` checks of the certification tier (the JAX package's, of
+    overiva/auxiva and the joint family); True for ``acc="f32x2"``."""
+    if str(acc) not in ("f32", "f32x2"):
+        raise ValueError(f"acc must be 'f32' or 'f32x2', got {acc!r}")
+    if acc != "f32x2":
+        return False
+    if dtype is not None and cdtype != torch.complex64:
+        raise ValueError(
+            "acc='f32x2' is the double-float-of-complex64 tier; "
+            f"dtype={dtype!r} is not combinable with it"
+        )
+    if wcov is not None and str(wcov) != "f32":
+        raise ValueError(
+            f"wcov={wcov!r} is not combinable with acc='f32x2' "
+            "(the df tier has its own precision)"
+        )
+    return True
+
+
+def _df_setup(X, dtype, acc, device, wcov=None):
+    """(NumPy in?, working dtype, output dtype, X on the device) of an entry
+    point with ``acc``: ``"f32x2"`` runs complex128 on the complex64-rounded
+    input (as its TPU tier does) and returns complex64."""
+    cdtype = to_torch_dtype(dtype or DEFAULT_DTYPE)
+    out_dtype = cdtype
+    if _joint_df_guard(acc, dtype, cdtype, wcov):
+        cdtype = torch.complex128
+    Xd = as_tensor(X, out_dtype, resolve_device(device, X)).to(cdtype)
+    return not isinstance(X, torch.Tensor), cdtype, out_dtype, Xd
 
 
 def overiva(
@@ -200,9 +251,7 @@ def overiva(
     ``callback(Y)`` receives a projection-back-scaled copy of the outputs
     before every ``callback_every`` epochs, as the reference does.
     """
-    numpy_in = not isinstance(X, torch.Tensor)
     N = _n_src(n_src, X.shape[2])
-    cdtype = to_torch_dtype(dtype or DEFAULT_DTYPE)
     check_wcov(wcov)
     if str(wcov) == "bf16pack" and chunk_frames:
         raise ValueError(
@@ -210,29 +259,11 @@ def overiva(
             "point is avoiding the weighted temporary) — drop "
             "chunk_frames or use wcov='bf16'"
         )
-    if str(acc) not in ("f32", "f32x2"):
-        raise ValueError(f"acc must be 'f32' or 'f32x2', got {acc!r}")
     _check_model(model)
-    out_dtype = cdtype
-    if acc == "f32x2":
-        if init_eig:
-            raise ValueError("init_eig is not supported with acc='f32x2'")
-        if dtype is not None and cdtype != torch.complex64:
-            raise ValueError(
-                "acc='f32x2' is the double-float-of-complex64 tier; "
-                f"dtype={dtype!r} is not combinable with it"
-            )
-        if str(wcov) != "f32":
-            raise ValueError(
-                f"wcov={wcov!r} is not combinable with acc='f32x2' "
-                "(the df tier has its own precision)"
-            )
-        cdtype = torch.complex128  # out_dtype stays complex64
-
-    dev = resolve_device(device, X)
-    # acc="f32x2" runs on the complex64-rounded input (as its TPU tier does)
-    Xd = as_tensor(X, out_dtype, dev).to(cdtype)
-    W0d = None if W0 is None else as_tensor(W0, out_dtype, dev).to(cdtype)
+    if acc == "f32x2" and init_eig:
+        raise ValueError("init_eig is not supported with acc='f32x2'")
+    numpy_in, cdtype, out_dtype, Xd = _df_setup(X, dtype, acc, device, wcov)
+    W0d = None if W0 is None else as_tensor(W0, out_dtype, Xd.device).to(cdtype)
     return _run(
         Xd, N, n_iter, "ip", model, proj_back, return_filters, callback, callback_every,
         numpy_in, out_dtype, init_eig=bool(init_eig), W0=W0d, wcov=str(wcov),
@@ -996,6 +1027,269 @@ def sparseauxiva_batch(X, n_bins=None, n_src=None, n_iter=20, proj_back=True,
     return _batch_out(Y, Xf, nb, proj_back, numpy_in)
 
 
+# ------------------------------------------- the joint dereverberation family
+
+def _check_taps(taps, delay):
+    taps, delay = int(taps), int(delay)
+    if taps < 0 or (taps > 0 and delay < 1):
+        raise ValueError("need taps >= 0 and delay >= 1 when taps > 0")
+    return taps, delay
+
+
+def _check_wpe(taps, delay):
+    if taps < 1:
+        raise ValueError("taps must be >= 1")
+    if delay < 1:
+        raise ValueError("delay must be >= 1 (delay 0 would predict the current frame "
+                         "from itself; with 50% STFT overlap use delay >= 2)")
+
+
+def wpe(X, taps=10, delay=3, n_iter=3, diag_load=1e-5, dtype=None, device=None):
+    """WPE dereverberation (``ops/wpe.py``; oracle twin ``oracle/wpe.py``).
+    X: (n_frames, n_freq, n_chan) complex STFT -> the same shape, with the
+    late reverberation subtracted by variance-normalized delayed linear
+    prediction (Nakatani et al. 2010). Chain its tensor output into any
+    separation call to keep the cascade on the device."""
+    _check_wpe(taps, delay)
+    numpy_in, _, Xd = _setup(X, dtype, device)
+    return _output(_wpe.wpe(Xd, int(taps), int(delay), int(n_iter), float(diag_load)), numpy_in)
+
+
+def wpe_batch(X, taps=10, delay=3, n_iter=3, diag_load=1e-5, dtype=None, device=None):
+    """Batched WPE: (B, n_frames, n_freq, n_chan) -> the same, with a
+    leading batch axis (each mixture's activation floor is its own)."""
+    _check_wpe(taps, delay)
+    _check_batch(X, "wpe_batch")
+    numpy_in, _, Xb = _setup(X, dtype, device)
+    return _output(_wpe.wpe(Xb, int(taps), int(delay), int(n_iter), float(diag_load)), numpy_in)
+
+
+def _augmented_w0(W0, F, M, N, taps, dtype, device):
+    """A user W0 -> the augmented stack (F, M, M + M*taps): a previous full
+    augmented P, a square (F, M, M) stack (zero tap block), or (F, N, M)
+    target rows placed into the identity. The row count is tested first:
+    at taps=0 the full-augmented and square widths coincide."""
+    W0 = as_tensor(W0, dtype, device)
+    MJ = M + M * taps
+    if W0.shape[1] != M:  # (F, N, M) target rows into the identity
+        P0 = torch.zeros((F, M, MJ), dtype=dtype, device=device)
+        P0[:, :, :M] = torch.eye(M, dtype=dtype, device=device)
+        P0[:, :N, :M] = W0
+    elif W0.shape[2] == MJ:  # full augmented (== square at taps=0)
+        P0 = W0.clone()
+    else:  # square (F, M, M), zero tap block
+        P0 = torch.zeros((F, M, MJ), dtype=dtype, device=device)
+        P0[:, :, :M] = W0
+    return P0
+
+
+def _joint_start(X, W0, N, taps, delay, out_dtype, cdtype):
+    """(augmented input Xt, start P) of a joint run on X (T, F, M): the
+    augmented identity, or ``W0`` through :func:`_augmented_w0` (rounded
+    to ``out_dtype`` first, as the df tier takes it)."""
+    T, F, M = X.shape
+    Xt = _tiss.augment_taps(X, taps, delay)
+    if W0 is None:
+        return Xt, _tiss.augmented_eye(Xt, M)
+    return Xt, _augmented_w0(W0, F, M, N, taps, out_dtype, X.device).to(cdtype)
+
+
+def tiss(
+    X,
+    n_src=None,
+    taps=5,
+    delay=2,
+    n_iter=20,
+    proj_back=True,
+    W0=None,
+    model="laplace",
+    return_filters=False,
+    callback=None,
+    callback_every=10,
+    dtype=None,
+    acc="f32",
+    device=None,
+):
+    """T-ISS: joint dereverberation + separation by iterative source
+    steering on ``[X | taps delayed copies]`` (``models/tiss.py``; oracle
+    twin ``oracle/tiss.py``). ``taps=0`` is :func:`auxiva_iss` /
+    :func:`overiva_iss` exactly; ``n_src < n_chan`` steers phi = 1
+    background outputs. ``delay >= 1`` keeps the direct path out of the
+    predictor. W0 may be a previous (F, M, M + M*taps) stack, a square
+    (F, M, M) stack or (F, n_src, M) target rows. ``acc="f32x2"``: the
+    certification tier, complex128 on the complex64-rounded input,
+    complex64 out.
+
+    Returns Y (n_frames, n_freq, n_src) [, P (n_freq, n_chan, n_chan +
+    n_chan * taps)]."""
+    M = X.shape[2]
+    N = _n_src(n_src, M)
+    taps, delay = _check_taps(taps, delay)
+    numpy_in, cdtype, out_dtype, Xd = _df_setup(X, dtype, acc, device)
+    Xt, P = _joint_start(Xd, W0, N, taps, delay, out_dtype, cdtype)
+
+    def run(state, steps):  # resumes from (P, Y), never re-demixes
+        return _tiss.tiss_iterations(Xt, state[0], steps, model, M, N, Y=state[1])
+
+    P, Y = chunked(run, (P, _core.demix(Xt, P)), n_iter,
+                   _scaled_callback(callback, Xd, numpy_in, out_dtype), callback_every,
+                   lambda s: s[1][:, :, :N])
+    return _outputs(Y[:, :, :N], P, Xd, proj_back, return_filters, numpy_in, out_dtype)
+
+
+def _check_tip_wcov(wcov):
+    check_wcov(wcov)
+    if str(wcov) == "bf16pack":
+        raise ValueError(
+            "wcov='bf16pack' is untested on the tap-augmented (M(1+taps)-dim) "
+            "epochs — use wcov='bf16' for T-IP's bf16 tier"
+        )
+
+
+def tip(
+    X,
+    n_src=None,
+    taps=5,
+    delay=2,
+    n_iter=10,
+    warm_iter=10,
+    proj_back=True,
+    W0=None,
+    model="laplace",
+    return_filters=False,
+    callback=None,
+    callback_every=10,
+    dtype=None,
+    wcov="f32",
+    acc="f32",
+    device=None,
+):
+    """T-IP: joint dereverberation + separation with exact IP rows on the
+    augmented input (``models/tip.py``; oracle twin ``oracle/tip.py``).
+    Without ``W0`` and with ``taps > 0``, ``warm_iter`` T-ISS epochs run
+    first (cold-start full-row solves collapse on some scenes). ``taps=0,
+    n_src=n_chan`` is AuxIVA's IP trajectory. ``wcov``: ``"f32"``,
+    ``"f32x3"`` (exact f32 here) or ``"bf16"`` for the MJ-dim weighted
+    covariances; ``"bf16pack"`` raises. ``acc="f32x2"`` as in
+    :func:`tiss` (the warm-up included).
+
+    Returns Y (n_frames, n_freq, n_src) [, P]."""
+    M = X.shape[2]
+    N = _n_src(n_src, M)
+    taps, delay = _check_taps(taps, delay)
+    _check_tip_wcov(wcov)
+    numpy_in, cdtype, out_dtype, Xd = _df_setup(X, dtype, acc, device, wcov)
+    Xt, P = _joint_start(Xd, W0, N, taps, delay, out_dtype, cdtype)
+    if W0 is None and warm_iter > 0 and taps > 0:
+        P, _ = _tiss.tiss_iterations(Xt, P, int(warm_iter), model, M, N)
+
+    def run(P, steps):
+        return _tip.tip_iterations(Xt, P, steps, model, M, N, str(wcov))
+
+    P = chunked(run, P, n_iter, _scaled_callback(callback, Xd, numpy_in, out_dtype),
+                callback_every, lambda P: _core.demix(Xt, P[:, :N, :]))
+    return _outputs(_core.demix(Xt, P[:, :N, :]), P, Xd, proj_back, return_filters,
+                    numpy_in, out_dtype)
+
+
+def ilrma_t(
+    X,
+    n_src=None,
+    taps=5,
+    delay=2,
+    n_iter=20,
+    proj_back=True,
+    W0=None,
+    n_components=2,
+    return_filters=False,
+    callback=None,
+    callback_every=10,
+    seed=0,
+    dtype=None,
+    device=None,
+):
+    """ILRMA-T: joint dereverberation + ILRMA, the NMF model driving T-ISS
+    steering on ``[X | delayed taps]`` (``models/ilrma_t.py``; oracle twin
+    ``oracle/ilrma_t.py``). Determined (n_src == n_chan); ``taps=0`` is
+    ILRMA-ISS. The NMF init is one ``default_rng(seed).random`` draw each
+    for basis and activations, as the oracle's.
+
+    Returns Y (n_frames, n_freq, n_chan) [, P]."""
+    T, F, M = X.shape
+    _determined(n_src, M, "ilrma_t")
+    taps, delay = _check_taps(taps, delay)
+    numpy_in, cdtype, Xd = _setup(X, dtype, device)
+    Xt, P = _joint_start(Xd, W0, M, taps, delay, cdtype, cdtype)
+    Xt, P = Xt[None], P[None]
+    B, H = _nmf_init([seed], M, F, int(n_components), T, cdtype, Xd.device)
+
+    def run(state, steps):
+        P, Y, B, H = state
+        return _ilrma_t.ilrma_t_iterations(Xt, P, B, H, steps, M, Y=Y)
+
+    P, Y, _, _ = chunked(run, (P, _ilrma_t.ilrma_t_demix(Xt, P), B, H), n_iter,
+                         _scaled_callback(callback, Xd, numpy_in), callback_every,
+                         lambda s: s[1][0])
+    return _outputs(Y[0], P[0], Xd, proj_back, return_filters, numpy_in)
+
+
+def tiss_batch(X, n_src=None, taps=5, delay=2, n_iter=20, proj_back=True, model="laplace",
+               dtype=None, device=None):
+    """A batch (B, T, F, M) through T-ISS, folded into the bin axis (each
+    mixture's own activations). Returns (B, T, F, n_src)."""
+    _check_batch(X, "tiss_batch")
+    M = X.shape[3]
+    N = _n_src(n_src, M)
+    taps, delay = _check_taps(taps, delay)
+    numpy_in, _, Xb = _setup(X, dtype, device)
+    nb = Xb.shape[0]
+    Xt = _core.fold_mixtures(_tiss.augment_taps(Xb, taps, delay))
+    _, Y = _tiss.tiss_iterations(Xt, _tiss.augmented_eye(Xt, M), int(n_iter), model, M, N,
+                                 n_mix=nb)
+    return _batch_out(Y[:, :, :N], _core.fold_mixtures(Xb), nb, proj_back, numpy_in)
+
+
+def tip_batch(X, n_src=None, taps=5, delay=2, n_iter=10, warm_iter=10, proj_back=True,
+              model="laplace", dtype=None, wcov="f32", device=None):
+    """A batch (B, T, F, M) through T-IP (the T-ISS warm-up included),
+    folded into the bin axis (each mixture's activations weight its own
+    bins' covariances). Returns (B, T, F, n_src)."""
+    _check_batch(X, "tip_batch")
+    M = X.shape[3]
+    N = _n_src(n_src, M)
+    taps, delay = _check_taps(taps, delay)
+    _check_tip_wcov(wcov)
+    numpy_in, _, Xb = _setup(X, dtype, device)
+    nb = Xb.shape[0]
+    Xt = _core.fold_mixtures(_tiss.augment_taps(Xb, taps, delay))
+    P = _tiss.augmented_eye(Xt, M)
+    if warm_iter > 0 and taps > 0:
+        P, _ = _tiss.tiss_iterations(Xt, P, int(warm_iter), model, M, N, n_mix=nb)
+    P = _tip.tip_iterations(Xt, P, int(n_iter), model, M, N, str(wcov), n_mix=nb)
+    return _batch_out(_core.demix(Xt, P[:, :N, :]), _core.fold_mixtures(Xb), nb, proj_back,
+                      numpy_in)
+
+
+def ilrma_t_batch(X, n_src=None, taps=5, delay=2, n_iter=20, proj_back=True, n_components=2,
+                  seed=0, seeds=None, dtype=None, device=None):
+    """A batch (B, T, F, M) through ILRMA-T, with a leading batch axis (the
+    NMF activations and the renormalization sum over each mixture's own
+    bins). Element b's NMF init is ``ilrma_t(X[b], seed=seed + b)``'s, or
+    ``seed=seeds[b]``. Returns (B, T, F, M)."""
+    _check_batch(X, "ilrma_t_batch")
+    nb, T, F, M = X.shape
+    _determined(n_src, M, "ilrma_t")
+    taps, delay = _check_taps(taps, delay)
+    seeds = _seeds(seed, seeds, nb)
+    numpy_in, cdtype, Xb = _setup(X, dtype, device)
+    B, H = _nmf_init(seeds, M, F, int(n_components), T, cdtype, Xb.device)
+    Xt = _tiss.augment_taps(Xb, taps, delay)
+    P = _tiss.augmented_eye(Xt[0], M).expand(nb, -1, -1, -1)
+    _, Y, _, _ = _ilrma_t.ilrma_t_iterations(Xt, P, B, H, int(n_iter), M)
+    Xf = _core.fold_mixtures(Xb)
+    return _batch_out(_core.fold_mixtures(Y), Xf, nb, proj_back, numpy_in)
+
+
 def projection_back(Y, ref, device=None):
     """Minimal-distortion rescale factors z (F, K). The caller applies
     ``Y *= conj(z)[None]``, the reference's convention."""
@@ -1083,6 +1377,32 @@ def _separate_mnmf(X, n_src, n_iter, algo):
     return _mnmf_images(Xu, x_scale, state, 0, n_src)[0]
 
 
+_SEPARATE_ALGOS = FAMILIES + ("tiss", "tip", "ilrma_t") + _MNMF_ALGOS
+
+
+def _separate_joint(X, n_src, n_iter, model, algo, taps, delay):
+    """T-ISS, T-IP (10 warm T-ISS epochs when taps > 0) or ILRMA-T on X
+    (T, F, M) as the JAX package's fused ``separate`` runs them; ILRMA-T's
+    NMF init is drawn from ``jax.random.PRNGKey(0)`` (the port's copy
+    ``utils/threefry.py``) and its n_src most energetic outputs are kept.
+    Returns the unscaled outputs (T, F, n_src)."""
+    T, F, M = X.shape
+    Xt = _tiss.augment_taps(X, taps, delay)
+    P = _tiss.augmented_eye(Xt, M)
+    if algo == "tiss":
+        return _tiss.tiss_iterations(Xt, P, n_iter, model, M, n_src)[1][:, :, :n_src]
+    if algo == "tip":
+        if taps:  # the warm start
+            P, _ = _tiss.tiss_iterations(Xt, P, 10, model, M, n_src)
+        return _core.demix(Xt, _tip.tip_iterations(Xt, P, n_iter, model, M, n_src))[:, :, :n_src]
+    rnp = np.dtype(_real_np(X.dtype))
+    k1, k2 = threefry.split(threefry.prng_key(0))
+    B = as_tensor(threefry.uniform(k1, (M, F, 2), rnp) + rnp.type(0.1), None, X.device)
+    H = as_tensor(threefry.uniform(k2, (M, 2, T), rnp) + rnp.type(0.1), None, X.device)
+    _, Y, _, _ = _ilrma_t.ilrma_t_iterations(Xt[None], P[None], B[None], H[None], n_iter, M)
+    return _mnmf.pick_loudest(Y, n_src)[0]
+
+
 def separate(
     mix,
     n_src=None,
@@ -1093,30 +1413,34 @@ def separate(
     init_eig=False,
     algo="ip",
     dtype=None,
+    wpe=None,
+    taps=5,
+    delay=2,
     device=None,
 ):
-    """Time-domain in, time-domain out: STFT -> separation -> projection
-    back -> iSTFT, on one device.
+    """Time-domain in, time-domain out: STFT -> [WPE] -> separation ->
+    projection back -> iSTFT, on one device.
 
     ``algo``: "ip" (OverIVA/AuxIVA iterative projection), "iss" (source
     steering; OverIVA-ISS when n_src < n_chan), "ip2" (pairwise updates,
-    n_src >= 2; ``init_eig`` does not apply, as in the JAX package), or
-    "fastmnmf"/"fastmnmf2" (the full-rank spatial model with n_chan slots,
-    Wiener images at mic 0 and no projection back; the n_src loudest are
-    returned; the NMF init is the JAX package's ``jax.random.PRNGKey(0)``
-    draw, from the port's copy ``utils/threefry.py``). The JAX package's
-    other algorithms raise NotImplementedError naming the ROADMAP item
-    that ports them.
+    n_src >= 2; ``init_eig`` does not apply, as in the JAX package),
+    "tiss" (joint dereverberation + separation by steering on delayed
+    taps; ``taps``/``delay`` apply), "tip" (joint with exact IP rows, 10
+    warm T-ISS epochs built in), "ilrma_t" (joint dereverberation + ILRMA;
+    the extra outputs picked by energy), or "fastmnmf"/"fastmnmf2" (the
+    full-rank spatial model with n_chan slots, Wiener images at mic 0 and
+    no projection back; the n_src loudest are returned). The NMF inits of
+    "ilrma_t" and "fastmnmf*" are the JAX package's ``jax.random.PRNGKey(0)``
+    draws, from the port's copy ``utils/threefry.py``.
+    ``wpe``: None, True, or a dict of :func:`wpe` options (``taps``,
+    ``delay``, ``n_iter``; defaults 10, 3, 3): the dereverberation front.
     mix: (n_samples, n_chan) real. Returns (n_samples, n_src) real.
     """
-    if algo not in FAMILIES + _MNMF_ALGOS:
-        names = "'ip', 'iss', 'ip2', 'fastmnmf' or 'fastmnmf2'"
-        if algo in _UNPORTED_ALGOS:
-            raise NotImplementedError(
-                f"separate(algo={algo!r}) is not ported yet (ROADMAP.md "
-                f"Queue 1 item {_UNPORTED_ALGOS[algo]}); use {names}"
-            )
-        raise ValueError(f"unknown algo {algo!r}; use {names}")
+    if algo not in _SEPARATE_ALGOS:
+        raise ValueError(
+            f"unknown algo {algo!r}; use 'ip', 'iss', 'ip2', 'tiss', 'tip', 'ilrma_t', "
+            "'fastmnmf' or 'fastmnmf2'"
+        )
     numpy_in = not isinstance(mix, torch.Tensor)
     hop = hop or nfft // 2
     n, M = mix.shape
@@ -1124,15 +1448,26 @@ def separate(
     if algo == "ip2" and N < 2:
         raise ValueError("algo='ip2' needs n_src >= 2")
     _check_model(model)
+    wkw = {"taps": 10, "delay": 3, "n_iter": 3}
+    if isinstance(wpe, dict):
+        bad = set(wpe) - set(wkw)
+        if bad:
+            raise ValueError(f"unknown wpe option(s): {sorted(bad)}")
+        wkw.update(wpe)
     rdtype = to_torch_dtype(dtype or DEFAULT_DTYPE).to_real()
     x = as_tensor(mix, rdtype, resolve_device(device, mix))
     X = _stft.analysis(_stft.stft_pad(x, int(nfft), int(hop)), int(nfft), int(hop))
+    if wpe:  # the dereverberation front
+        X = _wpe.wpe(X, int(wkw["taps"]), int(wkw["delay"]), int(wkw["n_iter"]))
     if algo in _MNMF_ALGOS:
         Y = _separate_mnmf(X, N, int(n_iter), algo)
     else:
-        # init_eig applies to "ip" only, as in the JAX package's separate
-        Y, _ = run_family(X, N, int(n_iter), model, algo,
-                          init_eig=bool(init_eig) and algo == "ip")
+        if algo in FAMILIES:
+            # init_eig applies to "ip" only, as in the JAX package's separate
+            Y, _ = run_family(X, N, int(n_iter), model, algo,
+                              init_eig=bool(init_eig) and algo == "ip")
+        else:
+            Y = _separate_joint(X, N, int(n_iter), model, algo, int(taps), int(delay))
         Y = _proj.apply_projection_back(Y, X[:, :, 0])
     y = _stft.synthesis(Y, int(nfft), int(hop))
     start = nfft - hop

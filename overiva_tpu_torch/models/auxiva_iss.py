@@ -21,20 +21,29 @@ import torch
 
 from .overiva import demix, mixture_activations
 
-__all__ = ["auxiva_iss_iterations"]
+__all__ = ["auxiva_iss_iterations", "iss_phi", "iss_steps"]
 
 _EPS = 1e-15
 
 
-def _iss_epoch(W, Y, model: str, n_src=None, n_mix: int = 1):
-    """One ISS epoch on the full state: W (B*F, M, M), Y (T, B*F, M).
-    Returns the new (W, Y)."""
+def iss_phi(Y, model: str, n_src=None, n_mix: int = 1):
+    """The steering weights phi (T, B, M) of the outputs Y (T, B*F, M):
+    the source model on the first n_src outputs (per mixture), phi = 1 on
+    the M - n_src background outputs."""
     T, BF, M = Y.shape
     N = M if n_src is None else n_src
-    F = BF // n_mix
     phi = mixture_activations(Y[:, :, :N], model, n_mix).to(Y.real.dtype)  # (T, B, N)
     if N < M:
         phi = torch.cat([phi, phi.new_ones((T, n_mix, M - N))], dim=2)
+    return phi
+
+
+def iss_steps(W, Y, phi, n_mix: int = 1):
+    """The M source-steering steps, in order, with the weights phi (T, B, M):
+    W (B*F, M, J) for any row width J (T-ISS steers its augmented rows),
+    Y (T, B*F, M). Returns the new (W, Y)."""
+    T, BF, M = Y.shape
+    F = BF // n_mix
     col = torch.arange(M, device=Y.device)[None, :]
     for n in range(M):  # order-dependent
         Yb = Y.reshape(T, n_mix, F, M)
@@ -48,6 +57,12 @@ def _iss_epoch(W, Y, model: str, n_src=None, n_mix: int = 1):
         Y = Y - v[None, :, :] * Y[:, :, n, None]
         W = W - v[:, :, None] * W[:, n, None, :]
     return W, Y
+
+
+def _iss_epoch(W, Y, model: str, n_src=None, n_mix: int = 1):
+    """One ISS epoch on the full state: W (B*F, M, M), Y (T, B*F, M).
+    Returns the new (W, Y)."""
+    return iss_steps(W, Y, iss_phi(Y, model, n_src, n_mix), n_mix)
 
 
 def auxiva_iss_iterations(X, W, n_iter: int, model: str, n_src=None, Y=None,

@@ -383,3 +383,70 @@ def test_sparseauxiva_bf16pack_launches(cuda):
     for algo in ("ilrma", "fastmnmf2"):
         getattr(api, algo)(X, n_iter=2, device=cuda)
     assert twp.wcov_packed.launches == before
+
+
+@pytest.mark.parametrize(
+    "algo,kw",
+    [
+        ("wpe", {"taps": 3, "delay": 2, "n_iter": 2}),
+        ("tiss", {"n_src": 2, "taps": 3, "delay": 2, "n_iter": 6}),
+        ("tip", {"n_src": 2, "taps": 2, "delay": 2, "n_iter": 3, "warm_iter": 3}),
+        ("tip", {"taps": 0, "n_iter": 4}),
+        ("ilrma_t", {"taps": 2, "delay": 2, "n_iter": 5}),
+        ("wpe_batch", {"taps": 3, "delay": 2, "n_iter": 2}),
+        ("tiss_batch", {"n_src": 2, "taps": 2, "delay": 2, "n_iter": 4}),
+        ("tip_batch", {"n_src": 2, "taps": 2, "delay": 2, "n_iter": 2, "warm_iter": 2}),
+        ("ilrma_t_batch", {"taps": 2, "delay": 2, "n_iter": 4}),
+    ],
+)
+def test_joint_family_on_card_matches_cpu(cuda, algo, kw):
+    """complex128: WPE, T-ISS, T-IP, ILRMA-T and their batch forms on the
+    card against the same run on the CPU, outputs on the card, and no
+    launch of either kernel."""
+    rng = np.random.default_rng(12)
+    T, F, M = 64, 33, 3
+    shape = (2, T, F, M) if algo.endswith("_batch") else (T, F, M)
+    X = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    X[..., 2:, :, :] += 0.4 * X[..., :-2, :, :]  # a delayed echo for the taps
+    fn = getattr(api, algo)
+    counts = (twp.wcov_packed.launches, tur.update_rows.launches)
+    Y_gpu = fn(torch.from_numpy(X).to(cuda), dtype=np.complex128, **kw)
+    assert Y_gpu.device.type == "cuda"
+    assert (twp.wcov_packed.launches, tur.update_rows.launches) == counts
+    Y_cpu = fn(X, dtype=np.complex128, device="cpu", **kw)
+    err = np.abs(Y_gpu.cpu().numpy() - Y_cpu).max() / np.abs(Y_cpu).max()
+    assert err <= 1e-9, err
+
+
+def test_joint_separate_and_registry_on_card(cuda):
+    """separate(algo="tiss"|"tip"|"ilrma_t", wpe=...) and the joint
+    registry names (the -df tier included) on the card against the CPU;
+    no kernel launch."""
+    from overiva_tpu_torch.registry import get_algorithm
+
+    rng = np.random.default_rng(13)
+    mix = rng.standard_normal((6000, 3))
+    counts = (twp.wcov_packed.launches, tur.update_rows.launches)
+    # ILRMA-T at n_src = n_chan: below it, separate keeps the most energetic
+    # outputs, and its unit-power renormalization ties their energies to
+    # the last bit, so rounding picks them (in the JAX package too)
+    for algo, n_src in (("tiss", 2), ("tip", 2), ("ilrma_t", 3)):
+        kw = dict(n_src=n_src, nfft=256, n_iter=3, algo=algo, taps=2, delay=1,
+                  wpe={"taps": 2, "n_iter": 1}, dtype=np.complex128)
+        y_gpu = api.separate(mix, device=cuda, **kw)
+        y_cpu = api.separate(mix, device="cpu", **kw)
+        assert np.abs(y_gpu - y_cpu).max() <= 1e-8 * np.abs(y_cpu).max(), algo
+    X = rng.standard_normal((40, 17, 3)) + 1j * rng.standard_normal((40, 17, 3))
+    for name in ("tiss-df", "tip-df", "tip-gauss", "ilrma-t"):
+        spec = get_algorithm(name)
+        kw = dict(n_iter=2, taps=1, delay=1)
+        kw |= {"warm_iter": 1} if name.startswith("tip") else {}
+        # the -df tier: complex128 on the complex64-rounded input, complex64 out
+        kw |= {} if name.endswith("-df") else {"dtype": np.complex128}
+        n_src = 3 if name == "ilrma-t" else 2
+        Yb_gpu = spec.run_batch(torch.from_numpy(X[None]).to(cuda), n_src=n_src, **kw)
+        assert Yb_gpu.device.type == "cuda"
+        Y_cpu = spec(X, n_src=n_src, device="cpu", **kw)
+        err = np.abs(Yb_gpu[0].cpu().numpy() - Y_cpu).max() / np.abs(Y_cpu).max()
+        assert err <= (1e-6 if name.endswith("-df") else 1e-9), (name, err)
+    assert (twp.wcov_packed.launches, tur.update_rows.launches) == counts

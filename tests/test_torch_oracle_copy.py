@@ -35,6 +35,10 @@ JTWINS = {
     "fastmnmf": joracle.fastmnmf,
     "fastmnmf2": joracle.fastmnmf2,
     "sparseauxiva": joracle.sparseauxiva,
+    "tiss": joracle.tiss,
+    "tip": joracle.tip,
+    "ilrma_t": importlib.import_module("overiva_tpu.oracle.ilrma_t").ilrma_t,
+    "wpe": importlib.import_module("overiva_tpu.oracle.wpe").wpe,
 }
 
 from helpers import make_mixture
@@ -173,6 +177,51 @@ def test_tf_family_oracles_bit_for_bit(X4, name, kw):
                jfastmnmf2._wiener(X, got[1][0], got[1][1], got[1][2] @ got[1][3], 1))
 
 
+@pytest.mark.parametrize(
+    "name,kw",
+    [
+        ("tiss", {"n_src": 2, "taps": 2, "delay": 1, "n_iter": 4}),
+        ("tiss", {"taps": 0, "n_iter": 3, "model": "gauss"}),
+        ("tip", {"n_src": 2, "taps": 2, "delay": 1, "n_iter": 3, "warm_iter": 2}),
+        ("tip", {"taps": 1, "delay": 2, "n_iter": 3, "warm_iter": 0, "proj_back": False}),
+        ("ilrma_t", {"taps": 2, "delay": 1, "n_iter": 4, "seed": 2}),
+    ],
+)
+def test_joint_oracles_bit_for_bit(X4, name, kw):
+    """The T-ISS, T-IP and ILRMA-T oracles, with their filters, callback
+    snapshots and the three W0 forms; ILRMA-T with its NMF model and
+    likelihood."""
+    X = X4[:, :, :2] if name == "ilrma_t" else X4
+    got = getattr(toracle, name)(X, return_filters=True, **kw)
+    want = JTWINS[name](X, return_filters=True, **kw)
+    _equal(got, want)
+    snaps_t, snaps_j = [], []
+    getattr(toracle, name)(X, callback=snaps_t.append, callback_every=2, **kw)
+    JTWINS[name](X, callback=snaps_j.append, callback_every=2, **kw)
+    assert len(snaps_t) == len(snaps_j) >= 2
+    _equal(tuple(snaps_t), tuple(snaps_j))
+    P = got[1]
+    N = kw.get("n_src", X.shape[2])
+    for W0 in (P, P[:, :, : X.shape[2]], P[:, :N, : X.shape[2]]):
+        if name == "ilrma_t" and W0.shape[1] != X.shape[2]:
+            continue  # determined: no target-row form
+        _equal(getattr(toracle, name)(X, W0=W0, **kw), JTWINS[name](X, W0=W0, **kw))
+    if name == "ilrma_t":
+        got = toracle.ilrma_t(X, return_filters=True, return_nmf=True, **kw)
+        _equal(got, JTWINS[name](X, return_filters=True, return_nmf=True, **kw))
+        jll = importlib.import_module("overiva_tpu.oracle.ilrma_t").ilrma_t_loglik
+        tll = importlib.import_module("overiva_tpu_torch.oracle.ilrma_t").ilrma_t_loglik
+        _equal(tll(X, got[1], *got[2], 2, 1), jll(X, got[1], *got[2], 2, 1))
+
+
+@pytest.mark.parametrize("taps,delay", [(3, 1), (4, 2)])
+def test_wpe_oracle_bit_for_bit(X4, taps, delay):
+    jw = importlib.import_module("overiva_tpu.oracle.wpe")
+    _equal(toracle.delayed_taps(X4, taps, delay), jw.delayed_taps(X4, taps, delay))
+    _equal(toracle.delayed_taps(X4[:3], taps, delay), jw.delayed_taps(X4[:3], taps, delay))
+    _equal(toracle.wpe(X4, taps, delay, n_iter=2), JTWINS["wpe"](X4, taps, delay, n_iter=2))
+
+
 def test_sparse_helpers_bit_for_bit(X4):
     for k in (8, 16, 40):
         _equal(tsparse.select_bins(X4, k), jsparse.select_bins(X4, k))
@@ -236,7 +285,8 @@ def _imported_modules(path):
 def test_port_never_imports_the_jax_package():
     files = _port_sources()
     for name in ("overiva", "auxiva_iss", "overiva_iss", "overiva_ip2", "five", "ogive",
-                 "auxiva", "ilrma", "fastmnmf2", "sparseauxiva"):
+                 "auxiva", "ilrma", "fastmnmf2", "sparseauxiva", "wpe", "tiss", "tip",
+                 "ilrma_t"):
         assert REPO / "overiva_tpu_torch" / "oracle" / f"{name}.py" in files
     offenders = {}
     for path in files:

@@ -26,8 +26,10 @@ def test_package_never_imports_jax():
         "from overiva_tpu_torch.models import auxiva_iss, auxiva_pca, five, ogive\n"
         "from overiva_tpu_torch.models import overiva, overiva_ip2\n"
         "from overiva_tpu_torch.models import fastmnmf2, ilrma, sparseauxiva\n"
+        "from overiva_tpu_torch.models import ilrma_t, tip, tiss\n"
         "from overiva_tpu_torch.ops import covariance, linalg, projection, stft\n"
-        "from overiva_tpu_torch.ops import update_rows, wcov_packed\n"
+        "from overiva_tpu_torch.ops import update_rows, wcov_packed, wpe\n"
+        "from overiva_tpu_torch import registry\n"
         "from overiva_tpu_torch.utils import convert, threefry\n"
         "from overiva_tpu_torch import metrics, oracle\n"
         "from overiva_tpu_torch.metrics import bss_eval\n"
@@ -36,6 +38,9 @@ def test_package_never_imports_jax():
         "from overiva_tpu_torch.oracle import overiva_iss\n"
         "import overiva_tpu_torch.oracle.auxiva, overiva_tpu_torch.oracle.ilrma\n"
         "import overiva_tpu_torch.oracle.fastmnmf2, overiva_tpu_torch.oracle.sparseauxiva\n"
+        "import overiva_tpu_torch.oracle.ilrma_t, overiva_tpu_torch.oracle.tip\n"
+        "import overiva_tpu_torch.oracle.tiss, overiva_tpu_torch.oracle.wpe\n"
+        "assert len(registry.ALGORITHMS) == 30\n"
         "assert overiva_tpu_torch.overiva is api.overiva\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "jax_pkg = sorted(m for m in sys.modules\n"
@@ -127,6 +132,25 @@ def test_numpy_input_needs_device_without_a_card(monkeypatch):
                                                        algo="fastmnmf", **kw),
         "separate fastmnmf2": lambda **kw: api.separate(mix, n_src=2, nfft=256, n_iter=2,
                                                         algo="fastmnmf2", **kw),
+        "wpe": lambda **kw: api.wpe(X, taps=2, delay=1, n_iter=1, **kw),
+        "wpe_batch": lambda **kw: api.wpe_batch(X[None], taps=2, delay=1, n_iter=1, **kw),
+        "tiss": lambda **kw: api.tiss(X, n_src=2, taps=1, delay=1, n_iter=2, **kw),
+        "tip": lambda **kw: api.tip(X, n_src=2, taps=1, delay=1, n_iter=1, warm_iter=1, **kw),
+        "ilrma_t": lambda **kw: api.ilrma_t(X, taps=1, delay=1, n_iter=2, **kw),
+        "tiss_batch": lambda **kw: api.tiss_batch(X[None], n_src=2, taps=1, delay=1, n_iter=2,
+                                                  **kw),
+        "tip_batch": lambda **kw: api.tip_batch(X[None], n_src=2, taps=1, delay=1, n_iter=1,
+                                                warm_iter=1, **kw),
+        "ilrma_t_batch": lambda **kw: api.ilrma_t_batch(X[None], taps=1, delay=1, n_iter=2,
+                                                        **kw),
+        "separate tiss": lambda **kw: api.separate(mix, n_src=2, nfft=256, n_iter=2,
+                                                   algo="tiss", **kw),
+        "separate tip": lambda **kw: api.separate(mix, n_src=2, nfft=256, n_iter=1,
+                                                  algo="tip", **kw),
+        "separate ilrma_t": lambda **kw: api.separate(mix, n_src=2, nfft=256, n_iter=2,
+                                                      algo="ilrma_t", **kw),
+        "separate wpe": lambda **kw: api.separate(mix, n_src=2, nfft=256, n_iter=2,
+                                                  wpe={"taps": 2}, **kw),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match='device="cpu"'):
