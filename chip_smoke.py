@@ -66,7 +66,22 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    T-ISS, T-IP at f32 and bf16, ILRMA-T); the 30 registry names through
    ``__call__`` and ``run_batch`` on the card; ``separate(algo="tiss"|
    "tip"|"ilrma_t")`` and ``separate(wpe=True)`` at three lengths; both
-   kernels' counters zeroed before each joint run and read at 0 after.
+   kernels' counters zeroed before each joint run and read at 0 after;
+10. streaming: rooms from the port's simulation copy
+   (``overiva_tpu_torch.sim``, ``examples/streaming.py``'s room and
+   ``examples/parity_check.py``'s); ``OnlineAuxIVAISS`` in complex128 on
+   the card against the f64 ``online_iss_run`` element by element (rtol
+   1e-8, atol 1e-10) and in complex64 through iSTFT and bss_eval
+   (parity_check's stream row, gated at 0.1 dB); ``OnlineTISS`` (solve,
+   steer, taps=0) and ``OnlineWPE`` in complex128 on the card against the
+   CPU (printed); ``StreamingSeparator`` (online-iss, online-tiss) against
+   the STFT-domain class plus offline synthesis; ``warmup()`` mid-stream
+   and save -> restore bit for bit; three tensor-in blocks under
+   ``torch.cuda.set_sync_debug_mode("error")``; the warm per-block latency
+   (median, p95), real-time factor, device ops and busy share a block at
+   ``bench.py``'s streaming setting (M=4, nfft 512, hop 256, 16-frame
+   blocks of 256 ms, n_pass 2; online-iss also at M=8); both kernels'
+   counters at 0 over the phase.
 
 Each phase ends with a ``[time]`` line, its wall in seconds.
 
@@ -1340,6 +1355,288 @@ def phase_requests(dev, seed, algo="ip", n_iter=30, tag="requests", **opts):
         )
 
 
+# phase 10: streaming. The timed rows take bench.py:376-408's setting:
+# 16 kHz, nfft 512, hop 256, 16-frame blocks (4096 samples = 256 ms of
+# audio), n_pass 2, M=4 (and one online-iss row at the headline's M=8).
+STREAM_FS, STREAM_NFFT, STREAM_HOP, STREAM_BF, STREAM_M = 16000, 512, 256, 16, 4
+STREAM_TIMED, STREAM_WARM = 60, 2  # timed blocks (median and p95), untimed first
+STREAM_PROFILED = 10  # blocks under torch.profiler for ops and busy time
+
+
+def stream_room(seed, n_mics, n_samples):
+    """examples/streaming.py's room (7 x 5 x 3 m, RT60 0.2 s, one
+    speech-like talker per mic on a semicircle, a 4 cm circular array,
+    25 dB SNR), built with the port's sim copy. Returns (mix (n, M),
+    mic-0 images (n_src, n))."""
+    from overiva_tpu_torch.sim import ShoeBox, circular_mic_array, semi_circle_layout, speech_like
+
+    room = ShoeBox([7.0, 5.0, 3.0], fs=STREAM_FS, rt60=0.2, seed=seed)
+    src_pos = semi_circle_layout([3.5, 3.5, 1.5], np.pi / 2, 1.8, n_mics)
+    for k in range(n_mics):
+        room.add_source(src_pos[k], speech_like(n_samples, STREAM_FS, seed=seed * 31 + k))
+    room.add_mic_array(circular_mic_array([3.5, 2.2, 1.5], 0.04, n_mics))
+    premix, noise = room.simulate(return_premix=True, snr=25.0)
+    return (premix.sum(axis=0) + noise).T[:n_samples], premix[:, 0, :n_samples]
+
+
+def parity_room(seed=7):
+    """examples/parity_check.py's mixture (build_mixture, seed 7): two
+    talkers, five mics, 4 s, RT60 0.22 s, 25 dB SNR, with the port's sim
+    copy. Returns (mix (64000, 5), premix)."""
+    from overiva_tpu_torch.sim import ShoeBox, circular_mic_array, semi_circle_layout, speech_like
+
+    fs, n = 16000, 64000
+    room = ShoeBox([7.0, 6.0, 3.0], fs=fs, rt60=0.22, seed=seed)
+    for k, pos in enumerate(semi_circle_layout([3.5, 3.0, 1.5], np.pi / 2, 2.2, 2,
+                                               rot=np.pi / 2)):
+        room.add_source(pos, speech_like(n, fs, seed=seed * 13 + k))
+    room.add_mic_array(circular_mic_array([3.5, 3.0, 1.5], 0.05, 5))
+    premix, noise = room.simulate(return_premix=True, snr=25.0)
+    return (premix.sum(axis=0) + noise).T[:n], premix
+
+
+def stream_blocks(sep, X, B):
+    """Run the STFT-domain class ``sep`` over X (T, F, M) in blocks of B
+    frames (the last one partial); the outputs concatenated."""
+    return torch.cat([torch.as_tensor(sep.process(X[s : s + B]))
+                      for s in range(0, X.shape[0], B)])
+
+
+def phase_streaming(dev, seed):
+    """The streaming family: OnlineAuxIVAISS against the f64 oracle at
+    complex128 (element-wise) and through bss_eval at complex64
+    (examples/parity_check.py's stream row), OnlineTISS and OnlineWPE on
+    the card against the CPU at complex128, StreamingSeparator against the
+    STFT-domain class plus offline synthesis, warmup and save/restore
+    mid-stream, three tensor-in blocks under the CUDA sync check, and the
+    per-block latency, real-time factor, device ops and busy share at
+    bench.py's streaming setting. Both kernel counters stay at 0 over the
+    whole phase; returns (wcov_packed, update_rows) launches."""
+    import tempfile
+
+    from overiva_tpu_torch import api, oracle
+    from overiva_tpu_torch.metrics import bss_eval_sources
+    from overiva_tpu_torch.ops.update_rows import update_rows
+    from overiva_tpu_torch.ops.wcov_packed import wcov_packed
+    from overiva_tpu_torch.serving import StreamingSeparator
+
+    t_mark = [time.perf_counter()]
+
+    def mark(tag):
+        now = time.perf_counter()
+        log(f"[time] streaming: {tag} {now - t_mark[0]:.1f} s")
+        t_mark[0] = now
+
+    wcov_packed.launches = 0
+    update_rows.launches = 0
+    c128 = torch.complex128
+    nfft, hop, B, M = STREAM_NFFT, STREAM_HOP, STREAM_BF, STREAM_M
+    bs = B * hop
+    n_blocks = STREAM_WARM + STREAM_TIMED
+    mix4, refs4 = stream_room(seed, M, n_blocks * bs)
+    mix8, _ = stream_room(seed, 8, n_blocks * bs)
+    mark("the rooms (port sim copy)")
+
+    def stft(mix):
+        return oracle.analysis(oracle.stft_pad(mix, nfft, hop), nfft, hop)
+
+    # --- c128 on the card against the f64 oracle, element by element
+    X4 = stft(mix4[: 40 * bs])
+    X4 = X4[: (X4.shape[0] // B) * B]
+    F = X4.shape[1]
+    opts = dict(forget=0.97, n_pass=2, pb_forget=0.9995)
+    sep = api.OnlineAuxIVAISS(F, M, dtype=c128, device=dev, **opts)
+    got = stream_blocks(sep, torch.from_numpy(X4).to(dev), B).cpu().numpy()
+    want = oracle.online_iss_run(X4, B, **opts)
+    d = np.abs(got - want)
+    outside = int(np.sum(d > 1e-10 + 1e-8 * np.abs(want)))
+    line = (f"[stream] c128 OnlineAuxIVAISS {opts} (X {X4.shape}, blocks of {B}) vs f64 "
+            f"oracle online_iss_run: max|d| / max|oracle| {d.max() / np.abs(want).max():.2e}, "
+            f"{outside} of {d.size} outside rtol 1e-8, atol 1e-10")
+    if outside or got.shape != want.shape:
+        raise AssertionError(line)
+    log(line)
+
+    # --- c64 quality: examples/parity_check.py's "online-iss M=N=2
+    # (stream)" row, gated at 0.1 dB SDR/SIR against the f64 oracle
+    pmix, premix = parity_room()
+    qn = 1024
+    Xq = oracle.analysis(oracle.stft_pad(pmix, qn, qn // 2), qn, qn // 2)[:, :, :2]
+
+    def quality(Y):
+        y = oracle.synthesis(np.asarray(Y), qn, qn // 2)[qn - qn // 2 :][: pmix.shape[0]]
+        sdr, sir, _, _ = bss_eval_sources(premix[:, 0, : pmix.shape[0]], y.T)
+        return sdr, sir
+
+    sep = api.OnlineAuxIVAISS(Xq.shape[1], 2, forget=0.985, n_pass=2, device=dev)
+    Yq = stream_blocks(sep, torch.from_numpy(Xq.astype(np.complex64)).to(dev), 25)
+    sdr, sir = quality(Yq.cpu().numpy())
+    sdr_o, sir_o = quality(oracle.online_iss_run(Xq, 25, forget=0.985, n_pass=2))
+    d_sdr, d_sir = np.abs(sdr - sdr_o).max(), np.abs(sir - sir_o).max()
+    line = (f"[stream] c64 online-iss M=N=2 (stream) (X {Xq.shape}, blocks of 25, forget "
+            f"0.985, n_pass 2): SDR {np.round(sdr, 3)} SIR {np.round(sir, 3)}, oracle SDR "
+            f"{np.round(sdr_o, 3)} SIR {np.round(sir_o, 3)}; max|dSDR| {d_sdr:.4f} dB, "
+            f"max|dSIR| {d_sir:.4f} dB (tol 0.1)")
+    if not (d_sdr < 0.1 and d_sir < 0.1):
+        raise AssertionError(line)
+    log(line)
+    mark("c128 and c64 gates")
+
+    # --- c128 rows, printed: the card against the port's own CPU run,
+    # and OnlineTISS at taps=0 against OnlineAuxIVAISS on the card
+    X4s = X4[: 12 * B]
+    rows = [
+        ("OnlineTISS solve (taps 4, delay 2)", api.OnlineTISS,
+         dict(taps=4, delay=2, forget=0.97, n_pass=2)),
+        ("OnlineTISS steer (taps 4, delay 2)", api.OnlineTISS,
+         dict(taps=4, delay=2, forget=0.97, n_pass=2, tap_update="steer")),
+        ("OnlineWPE (taps 8, delay 2)", api.OnlineWPE, dict(taps=8, delay=2)),
+    ]
+    for name, cls, kw in rows:
+        on_card = stream_blocks(cls(F, M, dtype=c128, device=dev, **kw),
+                                torch.from_numpy(X4s).to(dev), B).cpu().numpy()
+        on_cpu = stream_blocks(cls(F, M, dtype=c128, device="cpu", **kw),
+                               torch.from_numpy(X4s), B).numpy()
+        d = np.abs(on_card - on_cpu).max() / np.abs(on_cpu).max()
+        log(f"[stream] c128 {name} (X {X4s.shape}): card vs CPU max|d| / max|CPU| {d:.2e}")
+    tiss0 = api.OnlineTISS(F, M, taps=0, forget=0.97, n_pass=2, dtype=c128, device=dev)
+    iss = api.OnlineAuxIVAISS(F, M, forget=0.97, n_pass=2, dtype=c128, device=dev)
+    Xs = torch.from_numpy(X4s).to(dev)
+    d = (stream_blocks(tiss0, Xs, B) - stream_blocks(iss, Xs, B)).abs().max().item()
+    log(f"[stream] c128 OnlineTISS taps=0 vs OnlineAuxIVAISS on the card: max|d| {d:.2e}")
+
+    # --- StreamingSeparator against the STFT-domain class + offline
+    # synthesis of the same frames (tests/test_serving.py's tolerance)
+    n_s = 12 * bs
+    xs = mix4[:n_s]
+    xp = np.concatenate([np.zeros((nfft - hop, M)), xs])
+    Xo = api.stft_analysis(torch.from_numpy(xp).to(dev), nfft, hop, dtype=c128)
+    for algo, cls, kw in [("online-iss", api.OnlineAuxIVAISS, {}),
+                          ("online-tiss", api.OnlineTISS, dict(taps=4, delay=2))]:
+        ss = StreamingSeparator(algo, n_chan=M, nfft=nfft, hop=hop, block_frames=B,
+                                forget=0.97, n_pass=2, dtype=c128, device=dev, **kw)
+        y_stream = np.concatenate([ss.process(xs[i * bs : (i + 1) * bs])
+                                   for i in range(n_s // bs)] + [ss.flush()])
+        ref = cls(F, M, forget=0.97, n_pass=2, dtype=c128, device=dev, **kw)
+        y_ref = api.stft_synthesis(stream_blocks(ref, Xo, B), nfft, hop, dtype=c128)
+        y_ref = y_ref.cpu().numpy()
+        scale = np.abs(y_ref).max()
+        d = np.abs(y_stream - y_ref)
+        outside = int(np.sum(d > 1e-10 * scale + 1e-8 * np.abs(y_ref)))
+        line = (f"[stream] c128 StreamingSeparator {algo} vs {cls.__name__} + offline "
+                f"synthesis ({n_s} samples x {M} mics): max|d| / max|y| {d.max() / scale:.2e}, "
+                f"{outside} outside rtol 1e-8, atol 1e-10 max|y|")
+        if outside or y_stream.shape != y_ref.shape:
+            raise AssertionError(line)
+        log(line)
+
+    # --- warmup mid-stream and save -> restore -> the next block, at c64
+    xb = [mix4[i * bs : (i + 1) * bs] for i in range(5)]
+    ref = StreamingSeparator("online-tiss", n_chan=M, nfft=nfft, block_frames=B, n_pass=2,
+                             device=dev)
+    want = [ref.process(b) for b in xb]
+    sep = StreamingSeparator("online-tiss", n_chan=M, nfft=nfft, block_frames=B, n_pass=2,
+                             device=dev)
+    got = [sep.process(b) for b in xb[:2]]
+    sep.warmup()
+    got += [sep.process(b) for b in xb[2:4]]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = sep.save(f"{tmp}/stream.npz", note="mid-stream")
+        new = StreamingSeparator("online-tiss", n_chan=M, nfft=nfft, block_frames=B,
+                                 n_pass=2, device=dev)
+        meta = new.restore(path)
+    after = new.process(xb[4])
+    same_warm = all(np.array_equal(a, b) for a, b in zip(got, want[:4]))
+    same_restore = np.array_equal(after, want[4]) and meta["note"] == "mid-stream"
+    line = (f"[stream] StreamingSeparator online-tiss c64 on the card: warmup() after block 2 "
+            f"changes no later block: {same_warm}; save -> restore into a new instance -> "
+            f"block 5 identical: {same_restore}")
+    if not (same_warm and same_restore):
+        raise AssertionError(line)
+    log(line)
+
+    # --- no host sync: three tensor-in blocks on the card
+    X4d = torch.from_numpy(X4.astype(np.complex64)).to(dev)
+    for name, sep in [("OnlineAuxIVAISS", api.OnlineAuxIVAISS(F, M, n_pass=2, device=dev)),
+                      ("OnlineTISS", api.OnlineTISS(F, M, taps=4, delay=2, n_pass=2,
+                                                    device=dev))]:
+        sep.process(X4d[:B])  # first call: set-up outside the check
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i in range(1, 4):
+                sep.process(X4d[i * B : (i + 1) * B])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        log(f"[stream] {name}: three tensor-in blocks ran under "
+            "torch.cuda.set_sync_debug_mode('error'): no host sync")
+    mark("c128 rows, streamed vs offline, warmup, checkpoint, sync")
+
+    # --- timed rows: warm per-block latency over STREAM_TIMED blocks, every
+    # row timed before any is profiled (a profiler session can leave
+    # tracing costs behind on the host)
+    rows = []
+
+    def timed_row(name, process, blocks, m):
+        for blk in blocks[:STREAM_WARM]:
+            process(blk)
+        torch.cuda.synchronize()
+        lat = []
+        for blk in blocks[STREAM_WARM:]:
+            t0 = time.perf_counter()
+            process(blk)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+        rows.append((name, process, blocks, m, np.asarray(lat) * 1e3))
+
+    for name, m, mix, kw in [
+        ("StreamingSeparator online-iss, NumPy in and out", M, mix4, {}),
+        ("StreamingSeparator online-tiss (taps 4, delay 2), NumPy in and out", M, mix4,
+         dict(taps=4, delay=2)),
+        ("StreamingSeparator online-iss, NumPy in and out", 8, mix8, {}),
+    ]:
+        algo = "online-tiss" if kw else "online-iss"
+        ss = StreamingSeparator(algo, n_chan=m, nfft=nfft, hop=hop, block_frames=B,
+                                n_pass=2, device=dev, **kw)
+        ss.warmup()
+        blocks = [np.ascontiguousarray(mix[i * bs : (i + 1) * bs], dtype=np.float32)
+                  for i in range(n_blocks)]
+        timed_row(name, ss.process, blocks, m)
+    Xt = api.stft_analysis(torch.from_numpy(oracle.stft_pad(mix4, nfft, hop)).to(dev), nfft,
+                           hop, device=dev)
+    blocks = [Xt[i * B : (i + 1) * B] for i in range(n_blocks)]
+    for name, sep in [
+        ("OnlineAuxIVAISS, tensor in and out", api.OnlineAuxIVAISS(F, M, n_pass=2, device=dev)),
+        ("OnlineTISS (taps 4, delay 2), tensor in and out",
+         api.OnlineTISS(F, M, taps=4, delay=2, n_pass=2, device=dev)),
+        ("OnlineWPE (taps 8, delay 2), tensor in and out",
+         api.OnlineWPE(F, M, taps=8, delay=2, device=dev)),
+    ]:
+        timed_row(name, sep.process, blocks, M)
+    audio_ms = bs / STREAM_FS * 1e3
+    for name, process, blocks, m, lat in rows:
+        ops, busy = device_profile(
+            lambda: [process(b) for b in blocks[STREAM_WARM : STREAM_WARM + STREAM_PROFILED]])
+        med, p95 = float(np.median(lat)), float(np.percentile(lat, 95))
+        log(
+            f"[stream] {name} (M={m}, F={nfft // 2 + 1}, {B}-frame blocks of {bs} samples = "
+            f"{audio_ms:.0f} ms, n_pass 2, c64): median {med:.3f} ms, p95 {p95:.3f} ms over "
+            f"{len(lat)} warm blocks; real-time factor {audio_ms / med:.1f}; device ops a block "
+            f"{ops / STREAM_PROFILED:.1f}; device busy {busy / STREAM_PROFILED:.3f} ms a block "
+            f"= {100 * busy / STREAM_PROFILED / med:.1f} % of the median wall"
+        )
+    mark("timed rows")
+
+    torch.cuda.synchronize()
+    got = (wcov_packed.launches, update_rows.launches)
+    line = f"[stream] kernel launches over the streaming phase (wcov_packed, update_rows): {got}"
+    if got != (0, 0):
+        raise AssertionError(line + " (want (0, 0))")
+    log(line)
+    return got
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1377,6 +1674,7 @@ def main():
     sparse_launches = timed("tf-families", phase_tf_families, dev, mix, images, X64, main_path)
     timed("requests fastmnmf2", phase_requests, dev, seed, "fastmnmf2", 30, "tf-families")
     joint_launches = timed("joint", phase_joint, dev, seed, main_path)
+    stream_launches = timed("streaming", phase_streaming, dev, seed)
 
     loaded = sorted(
         m for m in sys.modules
@@ -1395,6 +1693,7 @@ def main():
         "ip2_launches": ip2_launches,
         "sparse_launches": sparse_launches,
         "joint_launches": joint_launches[0],
+        "stream_launches": stream_launches[0],
     }, {
         "name": "update_rows",
         "route": "cuda",
@@ -1403,6 +1702,7 @@ def main():
         "launches": fused_launches,
         **fused,
         "joint_launches": joint_launches[1],
+        "stream_launches": stream_launches[1],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

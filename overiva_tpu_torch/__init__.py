@@ -18,7 +18,14 @@ to PyTorch on an NVIDIA H100. The public API mirrors ``overiva_tpu.api``:
     overiva_batch, auxiva_iss_batch, overiva_iss_batch, overiva_ip2_batch,
     ogive_batch, five_batch, auxiva_pca_batch, ilrma_batch,
     fastmnmf2_batch, fastmnmf_batch, sparseauxiva_batch, wpe_batch,
-    tiss_batch, tip_batch, ilrma_t_batch
+    tiss_batch, tip_batch, ilrma_t_batch,
+    OnlineAuxIVAISS, OnlineTISS, OnlineWPE (streaming: STFT blocks in and
+    out, the state on the device, save/restore)
+
+``overiva_tpu_torch.serving.StreamingSeparator`` streams samples in and
+out (framing and overlap-add on the device too); ``overiva_tpu_torch.sim``
+builds simulated rooms (the copy of ``overiva_tpu/sim/``), and
+``python -m overiva_tpu_torch.examples.streaming`` drives both.
 
 ``overiva_tpu_torch.registry`` maps the 30 algorithm names of
 ``overiva_tpu.registry`` (``get_algorithm(name)(X, n_src=...)``, and
@@ -44,6 +51,7 @@ __all__ = ["resolve_device"]
 _API = {
     name: "api"
     for name in (
+        "OnlineAuxIVAISS", "OnlineTISS", "OnlineWPE",
         "auxiva", "auxiva_ip2", "auxiva_iss", "auxiva_iss_batch", "auxiva_pca",
         "auxiva_pca_batch", "fastmnmf", "fastmnmf2", "fastmnmf2_batch",
         "fastmnmf_batch", "five", "five_batch", "ilrma", "ilrma_batch", "ilrma_t",

@@ -1,8 +1,10 @@
-"""Public API: the IP family, the per-(t,f)-weighted families and the joint
-dereverberation family, NumPy or tensors in and out.
+"""Public API: the IP family, the per-(t,f)-weighted families, the joint
+dereverberation family and the streaming classes, NumPy or tensors in and
+out.
 
-Counterpart of the batch entry points of ``overiva_tpu/api.py``, with the
-same signatures and validation plus ``device=``:
+Counterpart of the batch entry points and streaming classes of
+``overiva_tpu/api.py``, with the same signatures and validation plus
+``device=``:
 
     stft_analysis(x, nfft) -> X            (n_frames, n_freq, n_chan)
     overiva(X, n_src, ...) -> Y [, W_hat]  (n_frames, n_freq, n_src)
@@ -15,6 +17,8 @@ same signatures and validation plus ``device=``:
     sparseauxiva                           IP on a bin subset + LASSO fill
     wpe                                    dereverberation (delayed prediction)
     tiss, tip, ilrma_t                     joint dereverberation + separation
+    OnlineAuxIVAISS, OnlineTISS, OnlineWPE streaming: STFT blocks in and out,
+                                           state on the device, save/restore
     separate(mix, n_src, algo="ip"|"iss"|"ip2"|"tiss"|"tip"|"ilrma_t"|
              "fastmnmf"|"fastmnmf2", wpe=None|True|dict)
                                            samples in, samples out
@@ -44,6 +48,9 @@ from .models import fastmnmf2 as _mnmf
 from .models import five as _five
 from .models import ilrma as _ilrma
 from .models import ogive as _ogive
+from .models import online_iss as _online_iss
+from .models import online_tiss as _online_tiss
+from .models import online_wpe as _online_wpe
 from .models import overiva as _core
 from .models import ilrma_t as _ilrma_t
 from .models import sparseauxiva as _sparse
@@ -57,9 +64,13 @@ from .ops import wpe as _wpe
 from .ops.covariance import check_tf_wcov, check_wcov
 from .oracle.sparseauxiva import _resolve_n_bins
 from .utils import threefry
-from .utils.convert import as_tensor, to_torch_dtype
+from .utils.checkpoint import load_state, save_state
+from .utils.convert import as_tensor, state_to_numpy, stream_state_to_torch, to_torch_dtype
 
 __all__ = [
+    "OnlineAuxIVAISS",
+    "OnlineTISS",
+    "OnlineWPE",
     "auxiva",
     "auxiva_ip2",
     "auxiva_iss",
@@ -1288,6 +1299,210 @@ def ilrma_t_batch(X, n_src=None, taps=5, delay=2, n_iter=20, proj_back=True, n_c
     _, Y, _, _ = _ilrma_t.ilrma_t_iterations(Xt, P, B, H, int(n_iter), M)
     Xf = _core.fold_mixtures(Xb)
     return _batch_out(_core.fold_mixtures(Y), Xf, nb, proj_back, numpy_in)
+
+
+# -------------------------------------------------------------- streaming
+
+def restored_state(host, current, dtype, device):
+    """A checkpoint's host arrays as the state that replaces ``current``:
+    the key sets and every shape must match (else ValueError), complex
+    entries become ``dtype`` and the real ones its real dtype
+    (:func:`utils.convert.stream_state_to_torch`), on ``device``."""
+    if set(host) != set(current):
+        raise ValueError(
+            f"checkpoint keys {sorted(host)} != state keys {sorted(current)}"
+        )
+    for k, cur in current.items():
+        if tuple(np.shape(host[k])) != tuple(cur.shape):
+            raise ValueError(
+                f"state {k!r}: checkpoint shape {np.shape(host[k])} != "
+                f"configured {tuple(cur.shape)}"
+            )
+    return stream_state_to_torch(host, device, dtype)
+
+
+class _StreamingState:
+    """What the streaming classes share: the device and dtypes, block
+    checks, and checkpoint/resume (the streaming analog of the batch
+    ``(return_filters, W0)`` pair). The state stays on the device between
+    calls; :meth:`save` copies it to the host, in the JAX package's npz
+    layout, so either package resumes the other's checkpoints."""
+
+    def _configure(self, n_freq, n_chan, dtype, device):
+        self.device = resolve_device(device)
+        self._cdtype = to_torch_dtype(dtype or DEFAULT_DTYPE)
+        self._rdtype = self._cdtype.to_real()
+        self._frame = (int(n_freq), int(n_chan))
+
+    def _scalar(self, value):
+        """A forgetting factor as a 0-d real tensor on the device (None stays)."""
+        if value is None:
+            return None
+        return torch.tensor(float(value), dtype=self._rdtype, device=self.device)
+
+    def _block(self, X_blk):
+        """(NumPy in?, the block as a complex tensor on the device)."""
+        numpy_in = not isinstance(X_blk, torch.Tensor)
+        X = as_tensor(X_blk, self._cdtype, self.device)
+        if X.ndim != 3 or tuple(X.shape[1:]) != self._frame:
+            raise ValueError(
+                f"block must be (block_frames, {self._frame[0]}, {self._frame[1]}), "
+                f"got {tuple(X.shape)}"
+            )
+        return numpy_in, X
+
+    def save(self, path, **meta):
+        """Persist the full streaming state + metadata to ``path`` (npz).
+        Returns the written path."""
+        meta.setdefault("class", type(self).__name__)
+        return save_state(path, state_to_numpy(self.state), **meta)
+
+    def restore(self, path) -> dict:
+        """Load state saved by :meth:`save` (by this package or the JAX
+        package) into this instance; the keys and shapes must match the
+        constructor's configuration. Returns the metadata."""
+        host, meta = load_state(path)
+        self.state = restored_state(host, self.state, self._cdtype, self.device)
+        return meta
+
+
+class OnlineAuxIVAISS(_StreamingState):
+    """Streaming determined separation: feed STFT blocks, get separated
+    blocks with O(block) latency (online rank-1 source steering with
+    exponential forgetting, ``models/online_iss.py``).
+
+    >>> sep = OnlineAuxIVAISS(n_freq=513, n_chan=4, forget=0.97)
+    >>> for X_blk in stream:          # (block_frames, n_freq, n_chan) complex
+    ...     y_blk = sep.process(X_blk)
+
+    ``ramp``: forgetting-factor scheduling (RLS-style warm-up), default
+    off; ``pb_forget``: a separate forgetting factor for the
+    projection-back scale statistics (see ``online_iss_step``).
+    ``device`` as in :func:`resolve_device` (default CUDA; without a card,
+    pass ``device="cpu"``). The state stays on the device; a NumPy block
+    gives a NumPy block, a tensor a tensor on the device.
+    """
+
+    def __init__(self, n_freq, n_chan, forget=0.97, model="laplace", n_pass=1,
+                 ramp=False, pb_forget=None, dtype=None, device=None):
+        _check_model(model)
+        self._configure(n_freq, n_chan, dtype, device)
+        self.model = model
+        self.n_pass = int(n_pass)
+        self.ramp = bool(ramp)
+        self.state = _online_iss.online_iss_init(*self._frame, self._cdtype, self.device)
+        self.forget = self._scalar(forget)
+        self.pb_forget = self._scalar(pb_forget)
+
+    def process(self, X_blk):
+        """(block_frames, n_freq, n_chan) complex -> separated block."""
+        numpy_in, X = self._block(X_blk)
+        Y, self.state = _online_iss.online_iss_step(
+            X, self.state, self.forget, self.model, self.n_pass, ramp=self.ramp,
+            pb_forget=self.pb_forget,
+        )
+        return _output(Y, numpy_in)
+
+    @property
+    def filters(self) -> np.ndarray:
+        """Current demixing matrix (n_freq, n_chan, n_chan), a host copy."""
+        return _output(self.state["W"].clone(), True)
+
+
+class OnlineTISS(_StreamingState):
+    """Streaming joint dereverberation + separation (online T-ISS,
+    ``models/online_tiss.py``): feed STFT blocks, get separated and
+    dereverberated blocks with O(block) latency. The taps live inside the
+    one demixing optimization on ``[X | delayed taps]``.
+
+    >>> sep = OnlineTISS(n_freq=257, n_chan=2, taps=4, delay=2)
+    >>> for X_blk in stream:          # (block_frames, n_freq, n_chan)
+    ...     y_blk = sep.process(X_blk)
+
+    ``tap_update``: "solve" (default; the tap rows re-derived each block
+    from stationary statistics, with ``tap_forget`` and ``diag_load``) or
+    "steer" (EW rank-1 tap steering, measured worse in the JAX package).
+    ``taps=0`` reproduces :class:`OnlineAuxIVAISS` exactly. ``device`` and
+    the input/output types as in :class:`OnlineAuxIVAISS`.
+    """
+
+    def __init__(self, n_freq, n_chan, taps=4, delay=2, forget=0.97, model="laplace",
+                 n_pass=1, pb_forget=None, tap_update="solve", tap_forget=None,
+                 diag_load=1e-5, dtype=None, device=None):
+        self.taps, self.delay = _check_taps(taps, delay)
+        if tap_update not in ("solve", "steer"):
+            raise ValueError("tap_update must be 'solve' or 'steer'")
+        _check_model(model)
+        self._configure(n_freq, n_chan, dtype, device)
+        self.model = model
+        self.n_pass = int(n_pass)
+        self.tap_update = tap_update
+        self.diag_load = float(diag_load)
+        self.state = _online_tiss.online_tiss_init(
+            *self._frame, self.taps, self.delay, tap_update, self._cdtype, self.device
+        )
+        self.forget = self._scalar(forget)
+        self.pb_forget = self._scalar(pb_forget)
+        self.tap_forget = self._scalar(tap_forget)
+
+    def process(self, X_blk):
+        """(block_frames, n_freq, n_chan) complex -> separated and
+        dereverberated block."""
+        numpy_in, X = self._block(X_blk)
+        Y, self.state = _online_tiss.online_tiss_step(
+            X, self.state, self.forget, self.taps, self.delay, self.model, self.n_pass,
+            pb_forget=self.pb_forget, tap_update=self.tap_update,
+            diag_load=self.diag_load, tap_forget=self.tap_forget,
+        )
+        return _output(Y, numpy_in)
+
+    @property
+    def filters(self) -> np.ndarray:
+        """Current augmented demixing stack (n_freq, M, M + M*taps), a host copy."""
+        return _output(self.state["P"].clone(), True)
+
+
+class OnlineWPE(_StreamingState):
+    """Streaming WPE dereverberation (``models/online_wpe.py``): feed STFT
+    blocks, get dereverberated blocks with O(block) latency (recursive tap
+    statistics with exponential forgetting, the filter re-solved per
+    block). ``forget`` is per frame (effective memory 1/(1-forget)
+    frames).
+
+    >>> drv = OnlineWPE(n_freq=513, n_chan=4, taps=8, delay=2)
+    >>> sep = OnlineAuxIVAISS(n_freq=513, n_chan=4)
+    >>> for X_blk in stream:          # (block_frames, n_freq, n_chan)
+    ...     y_blk = sep.process(drv.process(X_blk))
+
+    As a cascade into the online separator it measured negative in the
+    JAX package (the per-block re-solve keeps the channel moving under
+    the tracker); :class:`OnlineTISS` is the joint alternative. ``device``
+    and the input/output types as in :class:`OnlineAuxIVAISS`.
+    """
+
+    def __init__(self, n_freq, n_chan, taps=8, delay=2, forget=0.99, diag_load=1e-5,
+                 dtype=None, device=None):
+        _check_wpe(taps, delay)
+        self._configure(n_freq, n_chan, dtype, device)
+        self.taps, self.delay = int(taps), int(delay)
+        self.diag_load = float(diag_load)
+        self.state = _online_wpe.online_wpe_init(
+            *self._frame, self.taps, self.delay, self._cdtype, self.device
+        )
+        self.forget = self._scalar(forget)
+
+    def process(self, X_blk):
+        """(block_frames, n_freq, n_chan) complex -> dereverberated block."""
+        numpy_in, X = self._block(X_blk)
+        Y, self.state = _online_wpe.online_wpe_step(
+            X, self.state, self.forget, self.taps, self.delay, self.diag_load
+        )
+        return _output(Y, numpy_in)
+
+    @property
+    def filters(self) -> np.ndarray:
+        """Current prediction filter (n_freq, n_chan*taps, n_chan), a host copy."""
+        return _output(self.state["G"].clone(), True)
 
 
 def projection_back(Y, ref, device=None):

@@ -4,7 +4,8 @@ Copies of the functions of ``overiva_tpu/oracle/`` that the port needs, with
 the same names, so that the port imports nothing of the JAX package:
 the STFT (``analysis``, ``synthesis``, ``stft_pad``, ``hann``,
 ``synthesis_window``), the OverIVA, AuxIVA, AuxIVA-ISS, OverIVA-ISS, IP2,
-FIVE, OGIVE, ILRMA, FastMNMF1/2 and SparseAuxIVA oracles with their
+FIVE, OGIVE, ILRMA, FastMNMF1/2 and SparseAuxIVA oracles and the online
+AuxIVA-ISS stream (``online_iss_run``) with their
 activations and projection back, WPE (``delayed_taps``, ``wpe``) and the
 joint dereverberation oracles T-ISS, T-IP and ILRMA-T (the SparseAuxIVA
 helpers ``select_bins``, ``sparir`` and ``_resolve_n_bins``, the FastMNMF
@@ -20,6 +21,7 @@ from .ilrma import ilrma
 from .ilrma_t import ilrma_t
 from .models import EPS, activations, align_eigvec_phase
 from .ogive import ogive
+from .online_iss import online_iss_run
 from .overiva import overiva
 from .overiva_ip2 import auxiva_ip2, overiva_ip2
 from .overiva_iss import overiva_iss
@@ -48,6 +50,7 @@ __all__ = [
     "ilrma",
     "ilrma_t",
     "ogive",
+    "online_iss_run",
     "overiva",
     "overiva_ip2",
     "overiva_iss",

@@ -8,6 +8,9 @@ epoch, done)``, the input covariance ``Cx`` and the STFT ``X``.
 :func:`state_to_torch` turns such a mapping into tensors on one device,
 so the port can continue a run the JAX package started (or start from the
 same state); :func:`state_to_numpy` goes back.
+:func:`stream_state_to_torch` does the same for a streaming state (what
+the JAX streaming classes' ``save`` writes, or ``load_state`` returns),
+whose real statistics stay real.
 :func:`planes_to_torch` joins the float planes that the JAX package's
 Pallas kernels take and return (``Xr, Xi``, ``Wr, Wi``, ...) into one
 complex tensor.
@@ -20,8 +23,12 @@ import torch
 
 __all__ = [
     "as_tensor", "planes_to_torch", "state_to_numpy", "state_to_torch",
-    "to_torch_dtype",
+    "stream_state_to_torch", "to_torch_dtype",
 ]
+
+# the real entries of a streaming state: the online statistics' real sums
+# and frame count, and the serving tier's sample tail and overlap-add carry
+STREAM_REAL_KEYS = ("den", "zd", "t_eff", "tden", "tail", "carry")
 
 _NP_TO_TORCH = {
     np.dtype(np.complex64): torch.complex64,
@@ -64,6 +71,25 @@ def state_to_torch(state, device, dtype=torch.complex64):
         return as_tensor(v, dtype, device)
 
     return {k: one(v) for k, v in state.items()}
+
+
+def stream_state_to_torch(state, device, dtype=torch.complex64):
+    """{name: NumPy array} of a streaming state -> {name: tensor on
+    ``device``}: the keys of ``STREAM_REAL_KEYS`` as the real dtype that
+    matches the complex ``dtype``, every other key as ``dtype``. A complex
+    array under a real key raises ValueError (its imaginary part would be
+    dropped)."""
+    dtype = to_torch_dtype(dtype)
+    out = {}
+    for k, v in state.items():
+        v = np.asarray(v)
+        if k in STREAM_REAL_KEYS:
+            if np.iscomplexobj(v):
+                raise ValueError(f"state {k!r} must be real, got {v.dtype}")
+            out[k] = as_tensor(v, dtype.to_real(), device)
+        else:
+            out[k] = as_tensor(v, dtype, device)
+    return out
 
 
 def state_to_numpy(state):

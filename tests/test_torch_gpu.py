@@ -1,7 +1,8 @@
 """PyTorch port on a CUDA card: the hand-written kernels (``wcov_packed``,
 ``update_rows``) against their plain versions, and the main path, the
-fused epoch and the ISS, IP2, FIVE and OGIVE families on the card against
-the same on the CPU.
+fused epoch, the ISS, IP2, FIVE and OGIVE families, the per-(t,f)-weighted
+and joint families and the streaming classes on the card against the same
+on the CPU (the streaming blocks also without a host sync).
 
 Every test here needs a card and skips without one. This file imports no
 JAX, so it also runs where JAX is not installed:
@@ -450,3 +451,87 @@ def test_joint_separate_and_registry_on_card(cuda):
         err = np.abs(Yb_gpu[0].cpu().numpy() - Y_cpu).max() / np.abs(Y_cpu).max()
         assert err <= (1e-6 if name.endswith("-df") else 1e-9), (name, err)
     assert (twp.wcov_packed.launches, tur.update_rows.launches) == counts
+
+
+def _stream(sep, X, B):
+    return torch.cat([torch.as_tensor(sep.process(X[s : s + B]))
+                      for s in range(0, X.shape[0], B)])
+
+
+@pytest.mark.parametrize(
+    "cls,kw",
+    [
+        ("OnlineAuxIVAISS", {"forget": 0.97, "n_pass": 2, "pb_forget": 0.9995}),
+        ("OnlineAuxIVAISS", {"forget": 0.9, "ramp": True, "model": "gauss"}),
+        ("OnlineTISS", {"taps": 3, "delay": 2, "n_pass": 2}),
+        ("OnlineTISS", {"taps": 2, "delay": 1, "tap_update": "steer", "tap_forget": 0.99}),
+        ("OnlineWPE", {"taps": 4, "delay": 2}),
+    ],
+)
+def test_online_classes_on_card_match_cpu(cuda, cls, kw):
+    """complex128: the streaming classes on the card against the same
+    stream on the CPU, outputs and state on the card, no kernel launch."""
+    X, _ = _separable_mixture(21, T=96, F=33, M=3, N=3)
+    X[2:] += 0.4 * X[:-2]  # a delayed echo for the taps
+    counts = (twp.wcov_packed.launches, tur.update_rows.launches)
+    sep = getattr(api, cls)(33, 3, dtype=np.complex128, device=cuda, **kw)
+    Y_gpu = _stream(sep, torch.from_numpy(X).to(cuda), 16)
+    assert Y_gpu.device.type == "cuda" and all(v.is_cuda for v in sep.state.values())
+    assert (twp.wcov_packed.launches, tur.update_rows.launches) == counts
+    Y_cpu = _stream(getattr(api, cls)(33, 3, dtype=np.complex128, device="cpu", **kw),
+                    torch.from_numpy(X), 16).numpy()
+    err = np.abs(Y_gpu.cpu().numpy() - Y_cpu).max() / np.abs(Y_cpu).max()
+    assert err <= 1e-9, err
+
+
+def test_online_blocks_never_sync_the_host(cuda):
+    """A tensor-in block of OnlineAuxIVAISS, OnlineTISS (both tap updates)
+    and OnlineWPE runs under torch.cuda.set_sync_debug_mode("error")."""
+    X, _ = _separable_mixture(22, T=64, F=33, M=3, N=3)
+    Xd = torch.from_numpy(X.astype(np.complex64)).to(cuda)
+    for sep in (api.OnlineAuxIVAISS(33, 3, n_pass=2, ramp=True, device=cuda),
+                api.OnlineTISS(33, 3, taps=2, n_pass=2, device=cuda),
+                api.OnlineTISS(33, 3, taps=2, tap_update="steer", device=cuda),
+                api.OnlineWPE(33, 3, taps=3, device=cuda)):
+        sep.process(Xd[:16])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for s in range(16, 64, 16):
+                sep.process(Xd[s : s + 16])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("algo,kw", [("online-iss", {}), ("online-tiss", {"taps": 2, "delay": 1})])
+def test_streaming_separator_on_card_matches_offline(cuda, algo, kw):
+    """StreamingSeparator on the card (complex128) against the STFT-domain
+    class plus offline synthesis of the same frames, also on the card
+    (rtol 1e-8, atol 1e-10 of the largest sample); a tensor block stays on
+    the card and runs without a host sync."""
+    from overiva_tpu_torch.serving import StreamingSeparator
+
+    nfft, hop, bf = 128, 64, 8
+    blk = bf * hop
+    x = np.random.default_rng(23).standard_normal((6 * blk, 3))
+    x[1:] += 0.5 * x[:-1]
+    sep = StreamingSeparator(algo, n_chan=3, nfft=nfft, hop=hop, block_frames=bf, forget=0.97,
+                             n_pass=2, dtype=np.complex128, device=cuda, **kw)
+    y = np.concatenate([sep.process(x[i * blk : (i + 1) * blk]) for i in range(6)]
+                       + [sep.flush()])
+    xp = np.concatenate([np.zeros((nfft - hop, 3)), x])
+    X = api.stft_analysis(torch.from_numpy(xp).to(cuda), nfft, hop, dtype=np.complex128)
+    cls = api.OnlineAuxIVAISS if algo == "online-iss" else api.OnlineTISS
+    ref = cls(X.shape[1], 3, forget=0.97, n_pass=2, dtype=np.complex128, device=cuda, **kw)
+    y_ref = api.stft_synthesis(_stream(ref, X, bf), nfft, hop, dtype=np.complex128)
+    y_ref = y_ref.cpu().numpy()
+    np.testing.assert_allclose(y, y_ref, rtol=1e-8, atol=1e-10 * np.abs(y_ref).max())
+    xt = torch.from_numpy(x[:blk]).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = sep.process(xt)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.is_cuda and out.shape == (blk, 3)

@@ -2,8 +2,11 @@
 boundary.
 
 The port keeps copies of the NumPy-only functions it needs
-(``overiva_tpu_torch/oracle/``, ``overiva_tpu_torch/metrics/``) so that it
-imports nothing of the JAX package. Each copy is held bit for bit
+(``overiva_tpu_torch/oracle/``, ``overiva_tpu_torch/metrics/``,
+``overiva_tpu_torch/utils/checkpoint.py``, and ``csrc/rir.cpp``, a byte
+copy of ``native/rir.cpp``; the simulation copies are held in
+``tests/test_torch_sim.py``) so that it imports nothing of the JAX
+package. Each copy is held bit for bit
 (``np.array_equal``) against its twin in ``overiva_tpu.oracle`` /
 ``overiva_tpu.metrics`` on seeded inputs, and no module of the port, nor
 ``chip_smoke.py``, imports ``overiva_tpu``.
@@ -252,6 +255,42 @@ def test_bss_eval_sources_bit_for_bit():
         tmetrics.bss_eval_sources(np.zeros((2, 100)), np.ones((2, 100)))
 
 
+@pytest.mark.parametrize(
+    "kw", [{"block": 16, "forget": 0.97, "n_pass": 2, "pb_forget": 0.9995},
+           {"block": 7, "model": "gauss"}],
+)
+def test_online_iss_oracle_bit_for_bit(X4, kw):
+    """The stream's oracle, with a final partial block."""
+    jonline = importlib.import_module("overiva_tpu.oracle.online_iss")
+    X = X4[:-3, :, :2]
+    _equal(toracle.online_iss_run(X, **kw), jonline.online_iss_run(X, **kw))
+
+
+def test_checkpoint_copy_bit_for_bit(tmp_path):
+    """The same npz layout: each package's files load in the other."""
+    jck = importlib.import_module("overiva_tpu.utils.checkpoint")
+    tck = importlib.import_module("overiva_tpu_torch.utils.checkpoint")
+    rng = np.random.default_rng(13)
+    W = rng.standard_normal((5, 2, 3)) + 1j * rng.standard_normal((5, 2, 3))
+    state = {"W": W, "den": rng.random((2, 5, 2)), "t_eff": np.float64(3.5)}
+    for save, load in ((tck, jck), (jck, tck), (tck, tck)):
+        p = save.save_filters(tmp_path / f"f_{save.__name__}", W, n_iter=3)
+        _equal(load.load_filters(p)[0], W)
+        assert load.load_filters(p)[1] == {"n_iter": 3}
+        p = save.save_state(tmp_path / f"s_{save.__name__}.npz", state, cls="x")
+        got, meta = load.load_state(p)
+        assert set(got) == set(state) and meta == {"cls": "x"}
+        for k in state:
+            _equal(got[k], state[k])
+    with pytest.raises(ValueError, match="may not contain"):
+        tck.save_state(tmp_path / "bad", {"a__b": W})
+
+
+def test_rir_source_copy_is_byte_identical():
+    assert ((REPO / "overiva_tpu_torch" / "csrc" / "rir.cpp").read_bytes()
+            == (REPO / "native" / "rir.cpp").read_bytes())
+
+
 def _port_sources():
     files = sorted((REPO / "overiva_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py"]
@@ -286,8 +325,11 @@ def test_port_never_imports_the_jax_package():
     files = _port_sources()
     for name in ("overiva", "auxiva_iss", "overiva_iss", "overiva_ip2", "five", "ogive",
                  "auxiva", "ilrma", "fastmnmf2", "sparseauxiva", "wpe", "tiss", "tip",
-                 "ilrma_t"):
+                 "ilrma_t", "online_iss"):
         assert REPO / "overiva_tpu_torch" / "oracle" / f"{name}.py" in files
+    for rel in ("sim/room.py", "sim/_native.py", "utils/checkpoint.py", "serving.py",
+                "examples/streaming.py"):
+        assert REPO / "overiva_tpu_torch" / rel in files
     offenders = {}
     for path in files:
         bad = [

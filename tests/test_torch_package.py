@@ -27,6 +27,12 @@ def test_package_never_imports_jax():
         "from overiva_tpu_torch.models import overiva, overiva_ip2\n"
         "from overiva_tpu_torch.models import fastmnmf2, ilrma, sparseauxiva\n"
         "from overiva_tpu_torch.models import ilrma_t, tip, tiss\n"
+        "from overiva_tpu_torch.models import online_iss, online_tiss, online_wpe\n"
+        "from overiva_tpu_torch import serving, sim\n"
+        "from overiva_tpu_torch.sim import _native, layouts, room, sources\n"
+        "from overiva_tpu_torch.examples import streaming\n"
+        "from overiva_tpu_torch.utils import checkpoint\n"
+        "import overiva_tpu_torch.oracle.online_iss\n"
         "from overiva_tpu_torch.ops import covariance, linalg, projection, stft\n"
         "from overiva_tpu_torch.ops import update_rows, wcov_packed, wpe\n"
         "from overiva_tpu_torch import registry\n"
