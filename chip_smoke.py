@@ -81,7 +81,27 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (median, p95), real-time factor, device ops and busy share a block at
    ``bench.py``'s streaming setting (M=4, nfft 512, hop 256, 16-frame
    blocks of 256 ms, n_pass 2; online-iss also at M=8); both kernels'
-   counters at 0 over the phase.
+   counters at 0 over the phase;
+11. serving: the clip-serving tier at the headline widths (M=8, N=3, nfft
+   4096, 30 iterations, complex64) on clips of 64 / 128 / 256 real frames
+   (buckets 72 / 152 / 304, so every clip pads; the 128-frame clip is
+   phase 5's): ``Separator("overiva")`` f32 and ``wcov="bf16pack"``,
+   NumPy float in and out, with ``wcov_packed`` at 30 launches a bf16pack
+   clip (90 for a bf16pack ``separate_batch`` of three, clip by clip) and 0
+   under f32, ``update_rows`` at 0; SDR/SIR within 0.1 dB of the f64 oracle
+   at each length (the oracle in worker processes while the card works;
+   bf16pack within 0.3 dB mean SIR of f32); int16 PCM in equal to float /
+   32768 and int16 out equal to the host's quantization, bit for bit;
+   complex128 (5 iterations) element-wise within rtol 1e-6 of the unpadded
+   pipeline on the card; ``separate_batch`` of 8 clips in 3 buckets
+   against per-clip (complex64 printed, complex128 gated at 1e-9);
+   ``warmup()`` to 256 frames; the 17 SERVABLE names at a 3-mic STFT; the
+   oneshot (``-m 8 -s 3 --nfft 4096 --duration 8``) and ``parity_check
+   --quick`` CLI twins in process (PASS required); then the request
+   latency (median and p95 of 10 after a warm call) of the f32, bf16pack
+   and int16 tiers beside phase 6's ``api.separate``, with device ops and
+   busy share a request (f32 at each length, the other tiers at 128
+   frames), and ``separate_batch``'s wall.
 
 Each phase ends with a ``[time]`` line, its wall in seconds.
 
@@ -97,9 +117,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
@@ -886,6 +908,57 @@ TF_C128 = [
 ]
 
 
+def at_epochs(fn, epochs):
+    """{epochs: outputs} of one run of ``fn`` to the last count; an earlier
+    count is the snapshot a callback takes every epochs[0]."""
+    snaps = []
+    cb = snaps.append if len(epochs) > 1 else None
+    out = {epochs[-1]: fn(n_iter=epochs[-1], callback=cb, callback_every=epochs[0])}
+    return out | {e: snaps[e // epochs[0]] for e in epochs[:-1]}
+
+
+def oracle_job(name, X, epochs=(), **kw):
+    """One f64 oracle run, in a worker process: (outputs, seconds). With
+    ``epochs``, {epochs: Y} of one run (:func:`at_epochs`). main() submits
+    phase 8's runs when the script starts, so that they overlap phases
+    4-7 on the host's other cores."""
+    from overiva_tpu_torch import oracle
+
+    fn = getattr(oracle, name)
+    t0 = time.perf_counter()
+    out = at_epochs(lambda **k: fn(X, **kw, **k), epochs) if epochs else fn(X, **kw)
+    return out, time.perf_counter() - t0
+
+
+# phase 8's c64 rows: name, arguments, outputs scored by correlation,
+# epochs gated, printed. SparseAuxIVA is printed: at 8 outputs its complex64
+# runs sit up to a few dB SIR from the f64 oracle, the oracle's own complex64
+# run included (printed beside it), while its c128 row holds
+TF_C64 = [
+    ("ilrma", {}, True, (), (8,)),
+    ("fastmnmf2", {"n_src": N}, False, (12,), (30,)),
+    ("fastmnmf", {"n_src": N}, False, (12,), ()),
+    ("sparseauxiva", {}, True, (), (20,)),
+]
+
+
+def submit_tf_oracles(pool, X64):
+    """Phase 8's f64 oracle runs on ``pool``: {("c128", name): the c128
+    row's run with its filters, ("c64", name): the c64 row's {epochs: Y}
+    where the c128 run does not give it, ("c64 input", "sparseauxiva"):
+    the oracle on the complex64-rounded STFT}."""
+    jobs = {("c128", name): pool.submit(oracle_job, name, X64, return_filters=True, **kw)
+            for name, kw, _, _ in TF_C128}
+    c128_epochs = {name: kw.get("n_iter") for name, kw, _, _ in TF_C128}
+    for name, kw, _, gated, printed in TF_C64:
+        epochs = tuple(sorted(gated + printed))
+        if epochs != (c128_epochs[name],):
+            jobs["c64", name] = pool.submit(oracle_job, name, X64, epochs, **kw)
+    jobs["c64 input", "sparseauxiva"] = pool.submit(oracle_job, "sparseauxiva",
+                                                    X64.astype(np.complex64))
+    return jobs
+
+
 def _flat_outputs(out):
     """(Y, W) or (Y, (Q, g, W, H)) -> a flat tuple of NumPy arrays."""
     Y, rest = out
@@ -893,11 +966,12 @@ def _flat_outputs(out):
     return tuple(np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a) for a in (Y, *rest))
 
 
-def phase_tf_families(dev, mix, images, X64, main):
+def phase_tf_families(dev, mix, images, X64, main, oracle_jobs):
     """ILRMA, FastMNMF2/1 and SparseAuxIVA on phase 5's mixture: c128
     against the f64 oracle copies, c64 quality through iSTFT and bss_eval,
     ``wcov_packed`` in both IP phases of SparseAuxIVA's bf16pack tier, the
-    counters of every other run at 0, and times. Returns SparseAuxIVA's
+    counters of every other run at 0, and times. The oracle runs are
+    ``oracle_jobs`` (:func:`submit_tf_oracles`). Returns SparseAuxIVA's
     bf16pack launches."""
     from overiva_tpu_torch import api, oracle
     from overiva_tpu_torch.models import sparseauxiva as sparse_mod
@@ -918,9 +992,8 @@ def phase_tf_families(dev, mix, images, X64, main):
         got = _flat_outputs(getattr(api, name)(X128, dtype=torch.complex128,
                                                return_filters=True, **kw))
         t_port = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        want = _flat_outputs(getattr(oracle, name)(X64, return_filters=True, **kw))
-        t_oracle = time.perf_counter() - t0
+        want, t_oracle = oracle_jobs["c128", name].result()
+        want = _flat_outputs(want)
         oracle_y[name, kw.get("n_iter")] = want[0]
         parts, bad = [], []
         for q, a, b in zip(names, got, want):
@@ -941,7 +1014,8 @@ def phase_tf_families(dev, mix, images, X64, main):
                else f"gate {gate:g}")
         line = (
             f"[tf-families] c128 {name} {kw} vs f64 oracle: max|d| / max|oracle| "
-            + ", ".join(parts) + f" ({tol}); port {t_port:.2f} s, oracle {t_oracle:.2f} s"
+            + ", ".join(parts) + f" ({tol}); port {t_port:.2f} s, oracle {t_oracle:.2f} s "
+            "(a worker process)"
         )
         if bad:
             raise AssertionError(line + "; " + "; ".join(bad))
@@ -969,33 +1043,15 @@ def phase_tf_families(dev, mix, images, X64, main):
                 raise AssertionError("non-finite output")
         return out, wcov_packed.launches, update_rows.launches
 
-    def at_epochs(fn, epochs):
-        """{epochs: outputs} of one run of ``fn`` to the last count; an
-        earlier count is the snapshot a callback takes every epochs[0]."""
-        snaps = []
-        cb = snaps.append if len(epochs) > 1 else None
-        out = {epochs[-1]: fn(n_iter=epochs[-1], callback=cb, callback_every=epochs[0])}
-        return out | {e: snaps[e // epochs[0]] for e in epochs[:-1]}
-
-    # name, arguments, outputs scored by correlation, epochs gated, printed.
-    # SparseAuxIVA is printed: at 8 outputs its complex64 runs sit up to a
-    # few dB SIR from the f64 oracle, the oracle's own complex64 run
-    # included (printed beside it), while its c128 row holds
-    rows = [
-        ("ilrma", {}, True, (), (8,)),
-        ("fastmnmf2", {"n_src": N}, False, (12,), (30,)),
-        ("fastmnmf", {"n_src": N}, False, (12,), ()),
-        ("sparseauxiva", {}, True, (), (20,)),
-    ]
     sirs = {}
-    for name, kw, picked, gated, printed in rows:
+    for name, kw, picked, gated, printed in TF_C64:
         epochs = sorted(gated + printed)
         outs, n_pk, n_fused = counted(lambda: at_epochs(
             lambda **k: getattr(api, name)(X, device=dev, **kw, **k), epochs))
         if all((name, e) in oracle_y for e in epochs):
             outs_o = {e: oracle_y[name, e] for e in epochs}
         else:
-            outs_o = at_epochs(lambda **k: getattr(oracle, name)(X64, **kw, **k), epochs)
+            outs_o = oracle_jobs["c64", name].result()[0]
         scorer = score_picked if picked else (lambda y, im: score(y, im, n))
         for e in epochs:
             (sdr, sir), (sdr_o, sir_o) = scorer(synth(outs[e]), images), scorer(
@@ -1013,8 +1069,8 @@ def phase_tf_families(dev, mix, images, X64, main):
                 raise AssertionError(line)
             log(line)
         if name == "sparseauxiva":  # the oracle's own complex64 run
-            sdr_32, sir_32 = scorer(oracle_synth(oracle.sparseauxiva(
-                X64.astype(np.complex64), **kw)), images)
+            sdr_32, sir_32 = scorer(oracle_synth(
+                oracle_jobs["c64 input", "sparseauxiva"].result()[0]), images)
             log(
                 f"[tf-families] c64 sparseauxiva: the oracle on the complex64 input "
                 f"SDR {np.round(sdr_32, 3)} SIR {np.round(sir_32, 3)}; max|dSDR| "
@@ -1327,20 +1383,23 @@ def phase_joint(dev, seed, main):
     # --- requests, samples in and out
     for algo, n_iter, opts in [("tiss", 30, {}), ("tip", 10, {}), ("ilrma_t", 30, {}),
                                ("ip", 30, {"wpe": True})]:
-        counted(lambda: phase_requests(dev, seed, algo, n_iter, "joint", **opts))
+        # the requests check their own outputs; counted reads the launches
+        counted(lambda: phase_requests(dev, seed, algo, n_iter, "joint", **opts) and None)
     mark("requests")
     return tuple(totals)
 
 
 def phase_requests(dev, seed, algo="ip", n_iter=30, tag="requests", **opts):
     """``separate(algo=...)`` on three clips of 64, 128 and 256 frames,
-    after one warm-up call; ``opts`` go to ``separate`` as they are."""
+    after one warm-up call; ``opts`` go to ``separate`` as they are.
+    Returns {frames: ms}."""
     from overiva_tpu_torch import api
 
     rng = np.random.default_rng(seed + 1)
     clips = [make_mixture(rng, N, M, samples_for_frames(f))[0] for f in (64, 128, 256)]
     api.separate(clips[0], n_src=N, n_iter=n_iter, algo=algo, device=dev, **opts)  # warm-up
-    for clip in clips:
+    times = {}
+    for frames, clip in zip((64, 128, 256), clips):
         t0 = time.perf_counter()
         y = api.separate(clip, n_src=N, n_iter=n_iter, algo=algo, device=dev, **opts)
         ms = (time.perf_counter() - t0) * 1e3
@@ -1353,6 +1412,8 @@ def phase_requests(dev, seed, algo="ip", n_iter=30, tag="requests", **opts):
             f"{M} mics ({clip.shape[0] // HOP + 1} frames): {ms:.1f} ms, "
             "numpy in and out"
         )
+        times[frames] = ms
+    return times
 
 
 # phase 10: streaming. The timed rows take bench.py:376-408's setting:
@@ -1636,6 +1697,273 @@ def phase_streaming(dev, seed):
     log(line)
     return got
 
+# phase 11: the clip-serving tier. Clips of 64 / 128 / 256 real frames at
+# the headline widths land in buckets 72 / 152 / 304 of the default grid,
+# so every clip pads; the 128-frame clip is phase 5's mixture.
+SERVE_FRAMES = (64, 128, 256)
+SERVE_TIMED = 10  # timed requests a length and tier (median and p95), after one warm call
+
+
+def oracle_scores(mix, images, nfft, hop):
+    """(SDR, SIR) of the f64 oracle's 30-iteration OverIVA on ``mix``, as
+    phase 5 scores it; phase 11 runs it in a worker process while the card
+    works."""
+    from overiva_tpu_torch import oracle
+
+    X = oracle.analysis(oracle.stft_pad(mix, nfft, hop), nfft, hop)
+    y = oracle.synthesis(oracle.overiva(X, n_src=N, n_iter=30), nfft, hop)
+    n = mix.shape[0]
+    return score(y[nfft - hop : nfft - hop + n], images, n)
+
+
+def to_pcm16(x):
+    """int16 PCM of a float clip, its peak at 20000."""
+    return np.clip(np.round(x / np.abs(x).max() * 20000), -32768, 32767).astype(np.int16)
+
+
+def pcm16_host(y):
+    """The host's int16 quantization of float samples (a wav writer's):
+    round half to even at 32768, saturating."""
+    return np.clip(np.round(y * y.dtype.type(32768.0)), -32768.0, 32767.0).astype(np.int16)
+
+
+def serve_clips(seed):
+    """Phase 11's 64- and 256-frame clips, {frames: (mix, images)}, from
+    phase 5's generator (the 128-frame clip is phase 5's mixture)."""
+    rng = np.random.default_rng(seed + 11)
+    return {f: make_mixture(rng, N, M, samples_for_frames(f)) for f in (64, 256)}
+
+
+def phase_serving(dev, clips, oracle_futures, main, requests_ms):
+    """The clip-serving tier at the headline widths: Separator("overiva")
+    f32 and bf16pack, NumPy float and int16 PCM in and out, at 64 / 128 /
+    256 real frames (``clips``: {frames: (mix, images)}); exactness at
+    complex128 against the unpadded pipeline on the card, the int16 tiers
+    bit for bit, the launch counts, separate_batch against per-clip,
+    warmup, every SERVABLE name at a 3-mic STFT, the oneshot and
+    parity_check CLI twins, quality against the f64 oracle (its 64- and
+    256-frame runs are ``oracle_futures``, computed in worker processes
+    since the script started; phase 5 scored the 128-frame one), then the
+    request latency (median and p95) with device ops and busy share.
+    Returns the wcov_packed launches [f32 clip, bf16pack clip, bf16pack
+    group of three] and update_rows' over the phase."""
+    import contextlib
+    import io
+
+    from overiva_tpu_torch import api, oracle
+    from overiva_tpu_torch.examples import oneshot, parity_check
+    from overiva_tpu_torch.ops.update_rows import update_rows
+    from overiva_tpu_torch.ops.wcov_packed import wcov_packed
+    from overiva_tpu_torch.registry import get_algorithm
+    from overiva_tpu_torch.serving import SERVABLE, Separator
+
+    t_mark = [time.perf_counter()]
+
+    def mark(tag):
+        now = time.perf_counter()
+        log(f"[time] serving: {tag} {now - t_mark[0]:.1f} s")
+        t_mark[0] = now
+
+    update_rows.launches = 0
+    kw = dict(n_src=N, nfft=NFFT, n_iter=30, device=dev)
+    sep = {"f32": Separator("overiva", **kw),
+           "bf16pack": Separator("overiva", wcov="bf16pack", **kw)}
+    pcm = {name: Separator("overiva", out_dtype=np.int16, **kw,
+                           **({"wcov": "bf16pack"} if name == "bf16pack" else {}))
+           for name in sep}
+    sep["f32"].separate(clips[64][0])  # the first call's set-up (FFT plans, allocator)
+
+    # --- launches and outputs: NumPy float in and out at each length
+    ys, counts = {}, {}
+    for f in SERVE_FRAMES:
+        x = clips[f][0]
+        for name, s in sep.items():
+            wcov_packed.launches = 0
+            y = s.separate(x)
+            counts[name, f] = wcov_packed.launches
+            want = 30 if name == "bf16pack" else 0
+            if wcov_packed.launches != want or update_rows.launches:
+                raise AssertionError(
+                    f"{name} at {f} frames: wcov_packed {wcov_packed.launches} "
+                    f"(want {want}), update_rows {update_rows.launches} (want 0)")
+            if y.shape != (x.shape[0], N) or y.dtype != np.float32 or not np.isfinite(y).all():
+                raise AssertionError(f"bad output {y.shape} {y.dtype} at {f} frames")
+            ys[name, f] = y
+    # a bf16pack separate_batch of three clips, two of them in bucket 72
+    wcov_packed.launches = 0
+    outs = sep["bf16pack"].separate_batch(
+        [clips[64][0], clips[64][0][: samples_for_frames(60)], clips[128][0]])
+    serve_launches = [counts["f32", 128], counts["bf16pack", 128], wcov_packed.launches]
+    if serve_launches[2] != 90 or update_rows.launches:
+        raise AssertionError(f"bf16pack group of 3: {serve_launches[2]} launches (want 90)")
+    for f, o in ((64, outs[0]), (128, outs[2])):
+        if not np.array_equal(o, ys["bf16pack", f]):
+            raise AssertionError(f"bf16pack group differs from per-clip at {f} frames")
+    log(f"[serving] launches of wcov_packed a clip: f32 {serve_launches[0]}, bf16pack "
+        f"{serve_launches[1]}; a bf16pack separate_batch of 3 clips (two in bucket 72) "
+        f"{serve_launches[2]}, clip by clip, equal to per-clip bit for bit; update_rows "
+        f"{update_rows.launches}; buckets {[sep['f32']._bucket(f) for f in SERVE_FRAMES]}")
+    mark("launches")
+
+    # --- int16 PCM in and out: bit for bit against float / 32768 and the host's quantization
+    x16 = to_pcm16(clips[128][0])
+    x16f = x16.astype(np.float32) / np.float32(32768)
+    for name, s in sep.items():
+        y_f = s.separate(x16f)
+        if not np.array_equal(s.separate(x16), y_f):
+            raise AssertionError(f"{name}: int16 in differs from float / 32768")
+        y_i = pcm[name].separate(x16)
+        if y_i.dtype != np.int16 or not np.array_equal(y_i, pcm16_host(y_f)):
+            raise AssertionError(f"{name}: int16 out differs from the host quantization")
+    log("[serving] int16 PCM: int16 in equals float / 32768 bit for bit, int16 out equals "
+        "the host quantization (array_equal), f32 and bf16pack, 128 frames")
+    mark("int16")
+
+    # --- exactness: complex128, 5 iterations, against the unpadded pipeline on the card
+    c128 = np.complex128
+    s128 = Separator("overiva", n_src=N, nfft=NFFT, n_iter=5, dtype=c128, device=dev)
+    worst = 0.0
+    for f in SERVE_FRAMES:
+        x = clips[f][0]
+        X = api.stft_analysis(oracle.stft_pad(x, NFFT, HOP), NFFT, dtype=c128, device=dev)
+        Y = api.overiva(X, n_src=N, n_iter=5, dtype=c128, device=dev)
+        want = api.stft_synthesis(Y, NFFT, dtype=c128, device=dev)[NFFT - HOP :][: x.shape[0]]
+        got = s128.separate(x)
+        scale = np.abs(want).max()
+        err = np.abs(got - want) - 1e-6 * np.abs(want)
+        worst = max(worst, float(np.abs(got - want).max() / scale))
+        if (err > 1e-8 * scale).any():
+            raise AssertionError(f"c128 Separator vs unpadded at {f} frames: "
+                                 f"{int((err > 1e-8 * scale).sum())} elements outside")
+    log(f"[serving] c128 5 it, Separator vs the unpadded pipeline on the card: max|d| / max|y| "
+        f"{worst:.2e} (rtol 1e-6, atol 1e-8 of max|y|, element-wise), at 64 / 128 / 256 frames")
+    mark("c128 exactness")
+
+    # --- separate_batch: 8 clips in 3 buckets against per-clip
+    def cut(f, frames):
+        return clips[f][0][: samples_for_frames(frames)]
+
+    batch = [clips[64][0], cut(64, 60), clips[128][0], cut(256, 140), cut(128, 125),
+             clips[256][0], cut(256, 250), cut(256, 245)]
+    per_clip = [ys["f32", 64], None, ys["f32", 128], None, None, ys["f32", 256], None, None]
+    per_clip = [p if p is not None else sep["f32"].separate(c) for p, c in zip(per_clip, batch)]
+    s_b = Separator("overiva", **kw)
+    outs = s_b.separate_batch(batch)
+    d64 = max(float(np.abs(o - p).max() / np.abs(p).max()) for o, p in zip(outs, per_clip))
+    s_b128 = Separator("overiva", n_src=N, nfft=NFFT, n_iter=5, dtype=c128, device=dev)
+    d128 = max(float(np.abs(o - s128.separate(c)).max() / np.abs(o).max())
+               for o, c in zip(s_b128.separate_batch(batch), batch))
+    log(f"[serving] separate_batch of 8 clips in {s_b.n_buckets()} buckets "
+        f"{sorted(b for b, _ in s_b.stats['bucket_hits'])}: c64 30 it max|batch - per-clip| / "
+        f"max|y| {d64:.2e} (printed); c128 5 it {d128:.2e} (gate 1e-9)")
+    if s_b.n_buckets() < 2 or d128 > 1e-9:
+        raise AssertionError("separate_batch differs from per-clip")
+    mark("batch")
+
+    # --- warmup up to 256 frames
+    s_w = Separator("overiva", **kw)
+    t0 = time.perf_counter()
+    touched = s_w.warmup(M, samples_for_frames(256))
+    torch.cuda.synchronize()
+    log(f"[serving] warmup to 256 frames: {touched} buckets "
+        f"{sorted(b for b, _ in s_w.stats['bucket_hits'])} in {time.perf_counter() - t0:.2f} s")
+    mark("warmup")
+
+    # --- the registry-size loop: every SERVABLE name at a 3-mic STFT
+    x3 = clips[128][0][: (124 - 1) * 128, :3]  # 124 frames at nfft 256
+    for name in SERVABLE:
+        spec = get_algorithm(name)
+        n_src = None if spec.determined or spec.single_output else 2
+        s = Separator(name, n_src=n_src, nfft=256, n_iter=5, device=dev)
+        y = s.separate(x3)
+        n_out = 1 if spec.single_output else (n_src or 3)
+        if not s.fused or y.shape != (x3.shape[0], n_out) or not np.isfinite(y).all():
+            raise AssertionError(f"{name}: fused {s.fused}, output {y.shape}")
+    log(f"[serving] the {len(SERVABLE)} SERVABLE names at a 3-mic STFT "
+        f"({x3.shape[0]} samples, nfft 256: {s._t_real_of(x3.shape[0])} frames, bucket "
+        f"{s._bucket(s._t_real_of(x3.shape[0]))}), 5 it: fused, finite, shaped")
+    mark("registry")
+
+    # --- the CLI twins, in process
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        oneshot.main(["-a", "overiva", "-m", "8", "-s", "3", "--nfft", "4096",
+                      "--duration", "8", "--device", str(dev)])
+    out = buf.getvalue()
+    if "SDR" not in out:
+        raise AssertionError(f"oneshot printed no SDR:\n{out}")
+    for line in out.strip().splitlines()[-4:]:
+        log(f"[serving] oneshot: {line.strip()}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = parity_check.main(["--quick", "--device", str(dev)])
+    out = buf.getvalue()
+    for line in out.strip().splitlines():
+        log(f"[serving] parity_check --quick: {line}")
+    if rc != 0 or "PASS" not in out:
+        raise AssertionError("parity_check --quick did not pass")
+    mark("CLI twins")
+
+    # --- quality: each length against the f64 oracle (bf16pack against f32)
+    scores = {128: (main["sdr_o"], main["sir_o"])}
+    scores.update({f: fut.result() for f, fut in oracle_futures.items()})
+    for f in SERVE_FRAMES:
+        sdr_o, sir_o = scores[f]
+        n = clips[f][0].shape[0]
+        sdr32, sir32 = score(ys["f32", f], clips[f][1], n)
+        _, sirpk = score(ys["bf16pack", f], clips[f][1], n)
+        d_sdr, d_sir = np.abs(sdr32 - sdr_o).max(), np.abs(sir32 - sir_o).max()
+        d_pk = abs(sirpk.mean() - sir32.mean())
+        log(f"[serving] {f} frames (bucket {sep['f32']._bucket(f)}): SDR oracle "
+            f"{np.round(sdr_o, 3)} f32 {np.round(sdr32, 3)}; SIR oracle {np.round(sir_o, 3)} "
+            f"f32 {np.round(sir32, 3)} bf16pack {np.round(sirpk, 3)}; max|dSDR| {d_sdr:.4f}, "
+            f"max|dSIR| {d_sir:.4f} dB (tol 0.1); bf16pack vs f32 mean SIR {d_pk:.4f} dB (tol 0.3)")
+        if not (d_sdr < 0.1 and d_sir < 0.1 and d_pk < 0.3):
+            raise AssertionError(f"serving quality gate failed at {f} frames")
+    mark("quality (waiting for the oracle's worker processes)")
+
+    # --- request latency: median and p95 of SERVE_TIMED after one warm call
+    tiers = [("f32", sep["f32"], lambda f: clips[f][0]),
+             ("bf16pack", sep["bf16pack"], lambda f: clips[f][0]),
+             ("int16 in and out, f32", pcm["f32"], lambda f: to_pcm16(clips[f][0]))]
+    for tier, s, clip_of in tiers:
+        for f in SERVE_FRAMES:
+            x = clip_of(f)
+            s.separate(x)
+            lat = []
+            for _ in range(SERVE_TIMED):
+                t0 = time.perf_counter()
+                s.separate(x)
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t0) * 1e3)
+            med, p95 = float(np.median(lat)), float(np.percentile(lat, 95))
+            line = (f"[serving] Separator overiva {tier}, {f} frames (bucket {s._bucket(f)}), "
+                    f"{x.shape[0]} samples x {M} mics, 30 it, NumPy in and out: median "
+                    f"{med:.1f} ms, p95 {p95:.1f} ms of {SERVE_TIMED}; api.separate (phase 6) "
+                    f"{requests_ms[f]:.1f} ms")
+            # a request's ~27,000 device ops take the profiler ~9 s to read:
+            # profiled at every length under f32, at 128 frames otherwise
+            if tier == "f32" or f == 128:
+                ops, busy = device_profile(lambda: s.separate(x))
+                line += (f"; device ops a request {ops}, device busy {busy:.2f} ms = "
+                         f"{100 * busy / med:.1f} % of the median")
+            log(line)
+    lat = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        s_b.separate_batch(batch)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    log(f"[serving] separate_batch of the 8 clips (3 buckets), f32 30 it: median "
+        f"{np.median(lat):.1f} ms of 3 (per clip {np.median(lat) / 8:.1f} ms; not profiled: "
+        f"~80,000 device ops)")
+    mark("timed requests")
+
+    torch.cuda.synchronize()
+    if update_rows.launches:
+        raise AssertionError(f"update_rows launched {update_rows.launches} times (want 0)")
+    return serve_launches, update_rows.launches
+
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1664,17 +1992,48 @@ def main():
     rng = np.random.default_rng(seed)
     mix, images = make_mixture(rng, N, M, samples_for_frames(128))
     X64 = oracle.analysis(oracle.stft_pad(mix, NFFT, HOP), NFFT, HOP)
+    # the f64 oracle runs of phases 8 and 11 go to three of the host's
+    # cores from here on (after the kernels are timed), in worker processes
+    # that import no JAX either, while phases 4-7 drive the card
+    pool = ProcessPoolExecutor(3, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        oracle_jobs = submit_tf_oracles(pool, X64)
+        serving = serve_clips(seed)
+        serve_oracles = {f: pool.submit(oracle_scores, *clip, NFFT, HOP)
+                         for f, clip in serving.items()}
+        serving[128] = (mix, images)
+        phases(dev, seed, timed, kernel, fused, mix, images, X64, oracle_jobs, serving,
+               serve_oracles)
+    finally:
+        pool.shutdown(cancel_futures=True)
+    log(f"[done] chip_smoke.py wall {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+
+
+def phases(dev, seed, timed, kernel, fused, mix, images, X64, oracle_jobs, serving,
+           serve_oracles):
+    """Phases 4-11 and the kernels line (``kernel``, ``fused``: phases 3 and
+    3b's entries), on phase 5's mixture ``mix`` (its STFT ``X64``);
+    ``oracle_jobs``: phase 8's oracle runs; ``serving`` and
+    ``serve_oracles``: phase 11's clips and their oracle scores."""
     timed("trajectory", phase_trajectory, dev, X64)
     main_path = timed("main path", phase_main_path, dev, mix, images, X64)
     fused_launches = timed("fused run", phase_fused_run, dev, mix, images, main_path)
-    timed("requests", phase_requests, dev, seed)
+    requests_ms = timed("requests", phase_requests, dev, seed)
     ip2_launches = timed("families", phase_families, dev, mix, images, X64, main_path)
     timed("requests iss", phase_requests, dev, seed, "iss", 30, "families")
     timed("requests ip2", phase_requests, dev, seed, "ip2", 10, "families")
-    sparse_launches = timed("tf-families", phase_tf_families, dev, mix, images, X64, main_path)
+    sparse_launches = timed("tf-families", phase_tf_families, dev, mix, images, X64, main_path,
+                            oracle_jobs)
     timed("requests fastmnmf2", phase_requests, dev, seed, "fastmnmf2", 30, "tf-families")
     joint_launches = timed("joint", phase_joint, dev, seed, main_path)
     stream_launches = timed("streaming", phase_streaming, dev, seed)
+    serve_launches = timed("serving", phase_serving, dev, serving, serve_oracles, main_path,
+                           requests_ms)
 
     loaded = sorted(
         m for m in sys.modules
@@ -1682,7 +2041,6 @@ def main():
     )
     if loaded:
         raise AssertionError(f"JAX or the JAX package was imported: {loaded}")
-    log(f"[done] chip_smoke.py wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "wcov_packed",
         "route": "cuda",
@@ -1694,6 +2052,7 @@ def main():
         "sparse_launches": sparse_launches,
         "joint_launches": joint_launches[0],
         "stream_launches": stream_launches[0],
+        "serve_launches": serve_launches[0],
     }, {
         "name": "update_rows",
         "route": "cuda",
@@ -1703,12 +2062,8 @@ def main():
         **fused,
         "joint_launches": joint_launches[1],
         "stream_launches": stream_launches[1],
+        "serve_launches": serve_launches[1],
     }]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}))
 
 
 if __name__ == "__main__":

@@ -22,10 +22,16 @@ to PyTorch on an NVIDIA H100. The public API mirrors ``overiva_tpu.api``:
     OnlineAuxIVAISS, OnlineTISS, OnlineWPE (streaming: STFT blocks in and
     out, the state on the device, save/restore)
 
-``overiva_tpu_torch.serving.StreamingSeparator`` streams samples in and
+``to_device(X)`` uploads an array once as a complex tensor.
+
+``overiva_tpu_torch.serving.Separator`` (also exported here, with
+``SERVABLE`` and ``bucket_frames``) serves clips of any length on a
+frame-bucket grid, samples in and out, ``separate_batch`` for a group and
+int16 PCM tiers; ``serving.StreamingSeparator`` streams samples in and
 out (framing and overlap-add on the device too); ``overiva_tpu_torch.sim``
-builds simulated rooms (the copy of ``overiva_tpu/sim/``), and
-``python -m overiva_tpu_torch.examples.streaming`` drives both.
+builds simulated rooms (the copy of ``overiva_tpu/sim/``). The CLI twins
+``python -m overiva_tpu_torch.examples.oneshot``, ``.serving``,
+``.parity_check`` and ``.streaming`` drive them.
 
 ``overiva_tpu_torch.registry`` maps the 30 algorithm names of
 ``overiva_tpu.registry`` (``get_algorithm(name)(X, n_src=...)``, and
@@ -60,18 +66,19 @@ _API = {
         "overiva_ip2_batch", "overiva_iss", "overiva_iss_batch", "pca",
         "projection_back", "separate", "sparseauxiva", "sparseauxiva_batch",
         "stft_analysis", "stft_analysis_batch", "stft_synthesis",
-        "stft_synthesis_batch", "tip", "tip_batch", "tiss", "tiss_batch", "wpe",
-        "wpe_batch",
+        "stft_synthesis_batch", "tip", "tip_batch", "tiss", "tiss_batch", "to_device",
+        "wpe", "wpe_batch",
     )
 }
-__all__ += sorted(_API)
+_SERVING = {name: "serving" for name in ("SERVABLE", "Separator", "bucket_frames")}
+__all__ += sorted(_API) + sorted(_SERVING)
 
 
 def __getattr__(name):
     # lazy: `import overiva_tpu_torch` stays light until the API is used
-    if name in _API:
-        module = __import__(f"overiva_tpu_torch.{_API[name]}", fromlist=[name])
-        return getattr(module, name)
+    module = _API.get(name) or _SERVING.get(name)
+    if module is not None:
+        return getattr(__import__(f"overiva_tpu_torch.{module}", fromlist=[name]), name)
     raise AttributeError(f"module 'overiva_tpu_torch' has no attribute {name!r}")
 
 

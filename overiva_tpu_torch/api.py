@@ -27,6 +27,7 @@ Counterpart of the batch entry points and streaming classes of
     five_batch, auxiva_pca_batch, ilrma_batch, fastmnmf2_batch,
     fastmnmf_batch, sparseauxiva_batch, wpe_batch, tiss_batch, tip_batch,
     ilrma_t_batch                          a leading batch axis, written out
+    to_device(X)                           an array uploaded once, as a complex tensor
 
 A NumPy input gives a NumPy output; a tensor input gives a tensor on the
 device the work ran on. ``device`` defaults to the input tensor's device,
@@ -108,6 +109,7 @@ __all__ = [
     "tip_batch",
     "tiss",
     "tiss_batch",
+    "to_device",
     "wpe",
     "wpe_batch",
 ]
@@ -1503,6 +1505,15 @@ class OnlineWPE(_StreamingState):
     def filters(self) -> np.ndarray:
         """Current prediction filter (n_freq, n_chan*taps, n_chan), a host copy."""
         return _output(self.state["G"].clone(), True)
+
+
+def to_device(X, dtype=None, device=None):
+    """A (complex or real) array or tensor as a complex tensor of ``dtype``
+    (default complex64) on the resolved device; a real input gains a zero
+    imaginary part. Upload a batch STFT once and pass the result to many
+    ``*_batch`` calls: a tensor on the device skips each call's own copy."""
+    cdtype = to_torch_dtype(dtype or DEFAULT_DTYPE)
+    return as_tensor(X, cdtype, resolve_device(device, X))
 
 
 def projection_back(Y, ref, device=None):

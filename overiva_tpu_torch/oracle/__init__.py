@@ -4,8 +4,8 @@ Copies of the functions of ``overiva_tpu/oracle/`` that the port needs, with
 the same names, so that the port imports nothing of the JAX package:
 the STFT (``analysis``, ``synthesis``, ``stft_pad``, ``hann``,
 ``synthesis_window``), the OverIVA, AuxIVA, AuxIVA-ISS, OverIVA-ISS, IP2,
-FIVE, OGIVE, ILRMA, FastMNMF1/2 and SparseAuxIVA oracles and the online
-AuxIVA-ISS stream (``online_iss_run``) with their
+PCA + AuxIVA (``auxiva_pca``, ``pca``), FIVE, OGIVE, ILRMA, FastMNMF1/2
+and SparseAuxIVA oracles and the online AuxIVA-ISS stream (``online_iss_run``) with their
 activations and projection back, WPE (``delayed_taps``, ``wpe``) and the
 joint dereverberation oracles T-ISS, T-IP and ILRMA-T (the SparseAuxIVA
 helpers ``select_bins``, ``sparir`` and ``_resolve_n_bins``, the FastMNMF
@@ -15,6 +15,7 @@ bit against its twin.
 
 from .auxiva import auxiva
 from .auxiva_iss import auxiva_iss
+from .auxiva_pca import auxiva_pca, pca
 from .fastmnmf2 import fastmnmf, fastmnmf2, fastmnmf2_loglik
 from .five import five
 from .ilrma import ilrma
@@ -41,6 +42,7 @@ __all__ = [
     "auxiva",
     "auxiva_ip2",
     "auxiva_iss",
+    "auxiva_pca",
     "delayed_taps",
     "fastmnmf",
     "fastmnmf2",
@@ -54,6 +56,7 @@ __all__ = [
     "overiva",
     "overiva_ip2",
     "overiva_iss",
+    "pca",
     "projection_back",
     "sparseauxiva",
     "stft_pad",

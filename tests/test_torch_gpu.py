@@ -1,8 +1,9 @@
 """PyTorch port on a CUDA card: the hand-written kernels (``wcov_packed``,
 ``update_rows``) against their plain versions, and the main path, the
 fused epoch, the ISS, IP2, FIVE and OGIVE families, the per-(t,f)-weighted
-and joint families and the streaming classes on the card against the same
-on the CPU (the streaming blocks also without a host sync).
+and joint families, the streaming classes and the clip-serving
+``Separator`` on the card against the same on the CPU (the streaming
+blocks and a Separator clip also without a host sync).
 
 Every test here needs a card and skips without one. This file imports no
 JAX, so it also runs where JAX is not installed:
@@ -535,3 +536,89 @@ def test_streaming_separator_on_card_matches_offline(cuda, algo, kw):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert out.is_cuda and out.shape == (blk, 3)
+
+
+# the serving tier's clip path: one case per fused branch (the CPU tests'
+# cases, tests/test_torch_serving.py). The branches through the library
+# eigh (FIVE's whitening and filter, the PCA basis) are held at the
+# card-against-CPU gate of test_family_on_card_matches_cpu's eigh rows
+SERVE_CASES = [
+    ("overiva", 2, {}, 1e-9),
+    ("overiva-ip2", 2, {}, 1e-9),
+    ("auxiva-iss", None, {}, 1e-9),
+    ("auxiva_pca", 2, {}, 1e-7),
+    ("auxiva_pca-iss", 2, {}, 1e-7),
+    ("five", None, {}, 1e-7),
+    ("tiss", 2, {"taps": 2, "delay": 1}, 1e-9),
+    ("tip", 2, {"taps": 2, "delay": 1, "warm_iter": 2}, 1e-9),
+]
+
+
+def _serve_clip(seed, n=4000, M=3):
+    """A convolutive 2-source mixture at M mics, (n, M) float64."""
+    rng = np.random.default_rng(seed)
+    src = rng.laplace(size=(2, n)) * np.where(rng.random((2, n // 250 + 1)) < 0.5, 1.0, 0.1
+                                              ).repeat(250, axis=1)[:, :n]
+    H = rng.standard_normal((M, 2, 6))
+    H[:, :, 0] += 2.0 * np.sign(H[:, :, 0])
+    mix = np.stack([sum(np.convolve(src[k], H[m, k])[:n] for k in range(2)) for m in range(M)])
+    return mix.T + 1e-3 * rng.standard_normal((n, M))
+
+
+@pytest.mark.parametrize("algo,n_src,kw,tol", SERVE_CASES, ids=[c[0] for c in SERVE_CASES])
+def test_separator_on_card_matches_cpu(cuda, algo, n_src, kw, tol):
+    """complex128: each fused branch of Separator on the card against the
+    same Separator on the CPU; no update_rows launch."""
+    from overiva_tpu_torch.serving import Separator
+
+    x = _serve_clip(24)
+    args = dict(n_src=n_src, nfft=128, hop=64, n_iter=4, dtype=np.complex128, **kw)
+    before = tur.update_rows.launches
+    sep = Separator(algo, device=cuda, **args)
+    got = sep.separate(x)
+    want = Separator(algo, device="cpu", **args).separate(x)
+    assert sep.stats["frames_padded"] > 0 and tur.update_rows.launches == before
+    np.testing.assert_allclose(got, want, rtol=tol, atol=1e-12 * np.abs(want).max())
+
+
+def test_separator_bf16pack_launches(cuda):
+    """wcov_packed runs once an epoch for each clip: n_iter for one clip,
+    n_iter x B for a bf16pack group of B (clip by clip); never under f32,
+    and update_rows never."""
+    from overiva_tpu_torch.serving import Separator
+
+    x = _serve_clip(25)
+    kw = dict(n_src=2, nfft=128, n_iter=5, device=cuda)
+    counts = (twp.wcov_packed.launches, tur.update_rows.launches)
+    y = Separator("overiva", wcov="bf16pack", **kw).separate(x)
+    assert (twp.wcov_packed.launches, tur.update_rows.launches) == (counts[0] + 5, counts[1])
+    sep = Separator("overiva", wcov="bf16pack", **kw)
+    outs = sep.separate_batch([x, x[:3700], x[:2000]])
+    assert (twp.wcov_packed.launches, tur.update_rows.launches) == (counts[0] + 20, counts[1])
+    np.testing.assert_array_equal(outs[0], y)
+    assert np.isfinite(y).all() and sep.n_buckets() == 2
+    Separator("overiva", **kw).separate_batch([x, x[:3700]])
+    Separator("overiva-ip2", wcov="bf16pack", **kw).separate(x)
+    assert (twp.wcov_packed.launches, tur.update_rows.launches) == (counts[0] + 25, counts[1])
+
+
+def test_separator_never_syncs_the_host(cuda):
+    """A tensor clip on the card, float or int16 PCM in and out, f32 and
+    bf16pack: no host sync between the upload and the download."""
+    from overiva_tpu_torch.serving import Separator
+
+    x = _serve_clip(26)
+    x16 = np.clip(np.round(x / np.abs(x).max() * 20000), -32768, 32767).astype(np.int16)
+    for clip, extra in ((x, {}), (x, {"wcov": "bf16pack"}), (x16, {"out_dtype": np.int16})):
+        sep = Separator("overiva", n_src=2, nfft=128, n_iter=3, device=cuda, **extra)
+        xt = torch.from_numpy(clip if clip.dtype == np.int16 else clip.astype(np.float32)).to(cuda)
+        sep.separate(xt)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y = sep.separate(xt)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert y.is_cuda and y.shape == (clip.shape[0], 2)
+        assert y.dtype == (torch.int16 if "out_dtype" in extra else torch.float32)
+        np.testing.assert_array_equal(y.cpu().numpy(), sep.separate(clip))

@@ -286,6 +286,62 @@ def test_checkpoint_copy_bit_for_bit(tmp_path):
         tck.save_state(tmp_path / "bad", {"a__b": W})
 
 
+@pytest.mark.parametrize("kw", [{"n_src": 2, "n_iter": 4}, {"n_src": 3, "n_iter": 3, "model": "gauss",
+                                                        "proj_back": False},
+                                {"n_iter": 2}])
+def test_auxiva_pca_oracle_bit_for_bit(X4, kw):
+    """PCA + AuxIVA with its filters and callback snapshots, and the PCA
+    reduction with its basis."""
+    jpca = importlib.import_module("overiva_tpu.oracle.auxiva_pca")
+    _equal(toracle.auxiva_pca(X4, return_filters=True, **kw),
+           jpca.auxiva_pca(X4, return_filters=True, **kw))
+    snaps_t, snaps_j = [], []
+    toracle.auxiva_pca(X4, callback=snaps_t.append, callback_every=1, **kw)
+    jpca.auxiva_pca(X4, callback=snaps_j.append, callback_every=1, **kw)
+    _equal(tuple(snaps_t), tuple(snaps_j))
+    _equal(toracle.pca(X4, 2, return_basis=True), jpca.pca(X4, 2, return_basis=True))
+
+
+def test_audio_copy_writes_the_same_wavs(tmp_path):
+    """save_wavs writes the same bytes (normalized and not); the module is
+    a byte copy, and AudioPlayer lists the files without a player."""
+    jaudio = importlib.import_module("overiva_tpu.utils.audio")
+    taudio = importlib.import_module("overiva_tpu_torch.utils.audio")
+    assert ((REPO / "overiva_tpu_torch" / "utils" / "audio.py").read_bytes()
+            == (REPO / "overiva_tpu" / "utils" / "audio.py").read_bytes())
+    rng = np.random.default_rng(14)
+    sigs = {"mono": rng.standard_normal(3000), "stereo": 0.3 * rng.standard_normal((2000, 2))}
+    for normalize in (True, False):
+        got = taudio.save_wavs(tmp_path / f"t{normalize}", 16000, sigs, normalize=normalize)
+        want = jaudio.save_wavs(tmp_path / f"j{normalize}", 16000, sigs, normalize=normalize)
+        assert [p.name for p in got] == [p.name for p in want] == ["mono.wav", "stereo.wav"]
+        for a, b in zip(got, want):
+            assert a.read_bytes() == b.read_bytes()
+    player = taudio.AudioPlayer(got)
+    player.player = None
+    assert player.play(0) is False
+
+
+def test_convergence_recorder_copy_bit_for_bit(X4):
+    """The port's ConvergenceRecorder scores the same SDR/SIR as the JAX
+    package's, from NumPy snapshots and from tensor ones."""
+    import torch
+
+    jprof = importlib.import_module("overiva_tpu.utils.profiling")
+    tprof = importlib.import_module("overiva_tpu_torch.utils.profiling")
+    rng = np.random.default_rng(15)
+    n = (X4.shape[0] - 2) * 64
+    refs = rng.standard_normal((2, n))
+    Y = toracle.overiva(X4, n_src=2, n_iter=3)
+    jrec = jprof.ConvergenceRecorder(refs, 128, n_samples=n, filter_length=32)
+    trec = tprof.ConvergenceRecorder(refs, 128, n_samples=n, filter_length=32)
+    jrec(Y)
+    trec(Y)
+    trec(torch.from_numpy(Y))
+    _equal((trec.sdr[0], trec.sir[0]), (jrec.sdr[0], jrec.sir[0]))
+    _equal((trec.sdr[1], trec.sir[1]), (jrec.sdr[0], jrec.sir[0]))
+
+
 def test_rir_source_copy_is_byte_identical():
     assert ((REPO / "overiva_tpu_torch" / "csrc" / "rir.cpp").read_bytes()
             == (REPO / "native" / "rir.cpp").read_bytes())
@@ -328,7 +384,9 @@ def test_port_never_imports_the_jax_package():
                  "ilrma_t", "online_iss"):
         assert REPO / "overiva_tpu_torch" / "oracle" / f"{name}.py" in files
     for rel in ("sim/room.py", "sim/_native.py", "utils/checkpoint.py", "serving.py",
-                "examples/streaming.py"):
+                "examples/streaming.py", "examples/oneshot.py", "examples/serving.py",
+                "examples/parity_check.py", "utils/audio.py", "utils/profiling.py",
+                "oracle/auxiva_pca.py"):
         assert REPO / "overiva_tpu_torch" / rel in files
     offenders = {}
     for path in files:

@@ -30,7 +30,11 @@ def test_package_never_imports_jax():
         "from overiva_tpu_torch.models import online_iss, online_tiss, online_wpe\n"
         "from overiva_tpu_torch import serving, sim\n"
         "from overiva_tpu_torch.sim import _native, layouts, room, sources\n"
-        "from overiva_tpu_torch.examples import streaming\n"
+        "from overiva_tpu_torch.examples import streaming, oneshot, parity_check\n"
+        "from overiva_tpu_torch.examples import serving as serving_cli\n"
+        "from overiva_tpu_torch.utils import audio, profiling\n"
+        "import overiva_tpu_torch.oracle.auxiva_pca\n"
+        "assert overiva_tpu_torch.Separator is serving.Separator\n"
         "from overiva_tpu_torch.utils import checkpoint\n"
         "import overiva_tpu_torch.oracle.online_iss\n"
         "from overiva_tpu_torch.ops import covariance, linalg, projection, stft\n"
@@ -66,6 +70,11 @@ def test_lazy_exports_and_device_resolution(monkeypatch):
     assert sorted(overiva_tpu_torch._API) == sorted(api.__all__)
     for name in api.__all__:
         assert getattr(overiva_tpu_torch, name) is getattr(api, name)
+    from overiva_tpu_torch import serving
+
+    for name in ("Separator", "SERVABLE", "bucket_frames"):
+        assert name in overiva_tpu_torch.__all__
+        assert getattr(overiva_tpu_torch, name) is getattr(serving, name)
     with pytest.raises(AttributeError):
         overiva_tpu_torch.not_a_function  # noqa: B018
     resolve = overiva_tpu_torch.resolve_device
@@ -87,6 +96,7 @@ def test_numpy_input_needs_device_without_a_card(monkeypatch):
     """A NumPy input with no ``device`` raises on a host without CUDA, at
     every entry point; with ``device="cpu"`` it runs as before."""
     from overiva_tpu_torch import api
+    from overiva_tpu_torch.serving import Separator
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rng = np.random.default_rng(3)
@@ -157,6 +167,11 @@ def test_numpy_input_needs_device_without_a_card(monkeypatch):
                                                       algo="ilrma_t", **kw),
         "separate wpe": lambda **kw: api.separate(mix, n_src=2, nfft=256, n_iter=2,
                                                   wpe={"taps": 2}, **kw),
+        "Separator": lambda **kw: Separator("overiva", n_src=2, nfft=256, n_iter=2,
+                                            **kw).separate(mix),
+        "Separator int16": lambda **kw: Separator(
+            "five", nfft=256, n_iter=2, out_dtype=np.int16, **kw
+        ).separate_batch([(mix[:900] * 1000).astype(np.int16), mix[:1000]])[1],
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match='device="cpu"'):
@@ -164,6 +179,53 @@ def test_numpy_input_needs_device_without_a_card(monkeypatch):
         out = call(device="cpu")
         assert all(isinstance(o, np.ndarray) and np.isfinite(o).all()
                    for o in (out if isinstance(out, tuple) else (out,))), name
+
+
+def test_to_device(monkeypatch):
+    """api.to_device: a complex tensor of the asked dtype on the asked
+    device; a real input gains a zero imaginary part; a tensor stays where
+    it lies; no card and no device raises."""
+    from overiva_tpu_torch import api
+
+    rng = np.random.default_rng(8)
+    X = rng.standard_normal((6, 5, 3)) + 1j * rng.standard_normal((6, 5, 3))
+    t = api.to_device(X, device="cpu")
+    assert t.dtype == torch.complex64 and t.device.type == "cpu"
+    np.testing.assert_array_equal(t.numpy(), X.astype(np.complex64))
+    t = api.to_device(X, dtype=np.complex128, device="cpu")
+    assert t.dtype == torch.complex128
+    np.testing.assert_array_equal(t.numpy(), X)
+    real = api.to_device(X.real, dtype="complex128", device="cpu")
+    assert real.is_complex() and torch.equal(real.imag, torch.zeros_like(real.imag))
+    np.testing.assert_array_equal(real.real.numpy(), X.real)
+    assert api.to_device(t).dtype == torch.complex64  # a tensor input, default dtype
+    assert api.to_device(X.real.astype(np.float32), device="cpu").dtype == torch.complex64
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        api.to_device(X)
+    assert api.to_device(t).device.type == "cpu"
+
+
+def test_profiling_helpers(tmp_path):
+    """PhaseTimer keeps the JAX package's report; device_sync passes a CPU
+    tensor or an array through; profile_trace writes a Chrome trace, and
+    nothing without a directory."""
+    from overiva_tpu_torch.utils import profiling
+
+    timer = profiling.PhaseTimer()
+    for _ in range(2):
+        with timer("stft", sync_on=torch.ones(3)):
+            pass
+    with timer("iterate", sync_on=np.ones(3)):
+        pass
+    assert timer.counts == {"stft": 2, "iterate": 1}
+    assert set(timer.as_dict()) == {"stft", "iterate"}
+    assert timer.report().splitlines()[0].split(":")[0].strip() in ("stft", "iterate")
+    with profiling.profile_trace(None):
+        pass
+    with profiling.profile_trace(tmp_path / "trace"):
+        torch.ones(8).sum()
+    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
 
 
 def test_state_conversion_round_trip():
