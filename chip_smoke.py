@@ -101,7 +101,29 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    latency (median and p95 of 10 after a warm call) of the f32, bf16pack
    and int16 tiers beside phase 6's ``api.separate``, with device ops and
    busy share a request (f32 at each length, the other tiers at 128
-   frames), and ``separate_batch``'s wall.
+   frames), and ``separate_batch``'s wall;
+12. parallel: the multi-device tier (``overiva_tpu_torch/parallel/``) on
+   the one card. NCCL refuses two ranks on one device, so 4 gloo ranks
+   share cuda:0 (collectives staged through the host): the dry run's 17
+   families at its tiny shape on meshes (2, 2) and (1, 4) in complex128,
+   each within 1e-6 of the single-device run on the card, every rank the
+   same, each rank's collectives equal to the count of its JAX epochs;
+   ``sharded_overiva`` at the headline on (1, 4), complex64, within 0.1 dB
+   of phase 5's ``api.overiva``, its best-of-3 wall beside api.overiva's
+   (overhead on one shared card, not scaling); the dry run's 5 scaled
+   scenes (simulated rooms, F=2049, 20 iterations) under the dry run's
+   gate (``dryrun.scaled_verdict``): every seed's complex128 pair within
+   0.02 dB, every complex64 delta within 0.1 dB or a certified flip and
+   within ``dryrun.CONTROL_K`` times the control's, the single-device run
+   on its bins reversed (this frame-starved scene's complex64 spread), the
+   JAX dry run's rule of at most one flip printed; ``Separator(mesh=(4,
+   1))`` at 64 / 128 / 256 frames against meshless (complex128 within
+   1e-7; complex64 f32 and bf16pack printed) with ``wcov_packed`` at 30
+   launches for each clip a rank runs; ``sharded_overiva`` on one NCCL
+   rank (a 1 x 1 mesh); then two NCCL ranks on cuda:0, whose refusal is
+   printed. Each rank's launches of both kernels over the phase are
+   counted and gated (``wcov_packed`` 90 on each gloo rank, 0 on the NCCL
+   rank, ``update_rows`` 0 on all).
 
 Each phase ends with a ``[time]`` line, its wall in seconds.
 
@@ -121,7 +143,7 @@ import multiprocessing
 import subprocess
 import sys
 import time
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -535,7 +557,8 @@ def phase_main_path(dev, mix, images, X64):
             f"[main] overiva wcov={wcov} 30 it (T=128, F=2049, M=8, N=3, c64): "
             f"{t * 1e3:.2f} ms best of 3 = {30 / t:.1f} it/s"
         )
-    return {"launches": launches, "sdr_o": sdr_o, "sir_o": sir_o, "eager_s": eager_s["f32"]}
+    return {"launches": launches, "sdr_o": sdr_o, "sir_o": sir_o, "sdr_32": sdr_32,
+            "sir_32": sir_32, "eager_s": eager_s["f32"]}
 
 
 def phase_fused_run(dev, mix, images, main):
@@ -1965,6 +1988,217 @@ def phase_serving(dev, clips, oracle_futures, main, requests_ms):
     return serve_launches, update_rows.launches
 
 
+# phase 12: the parallel tier on the one card. NCCL refuses two ranks on
+# one device, so PAR_RANKS gloo ranks share cuda:0 (their collectives
+# staged through the host), and one NCCL rank runs a 1 x 1 mesh.
+PAR_RANKS = 4
+# Separator(mesh=(4, 1)) tiers: complex128 gated against meshless, the
+# complex64 tiers printed (and bf16pack's launches gated)
+PAR_SERVE_TIERS = (("c128 f32", {"dtype": np.complex128, "n_iter": 5}),
+                   ("c64 f32", {"dtype": np.complex64, "n_iter": 30}),
+                   ("c64 bf16pack", {"dtype": np.complex64, "n_iter": 30, "wcov": "bf16pack"}))
+
+
+def counted_rank(fn, *args):
+    """On a rank: fn(*args) and the launches of both kernels on that rank
+    over it, their counts set to 0 just before."""
+    from overiva_tpu_torch.ops.update_rows import update_rows
+    from overiva_tpu_torch.ops.wcov_packed import wcov_packed
+
+    wcov_packed.launches = update_rows.launches = 0
+    out = fn(*args)
+    return out, {"wcov_packed": wcov_packed.launches, "update_rows": update_rows.launches}
+
+
+def parallel_rank(tiny, X_head, scaled, clips, device_type="cuda", nfft=NFFT):
+    """On each of phase 12's gloo ranks (all on cuda:0): the dry run's
+    tiny-shape families on meshes (2, 2) and (1, 4); ``sharded_overiva`` at
+    the headline (X_head on the card) on (1, 4), best of 3 after a warm
+    call, with its collectives; the scaled gate's runs (``scaled``: [(X,
+    dtype)]); ``Separator(mesh=(4, 1))`` over ``clips`` in each of
+    PAR_SERVE_TIERS with the kernels' launches in each; the JAX modules
+    loaded. Run under :func:`counted_rank`, which counts the launches over
+    all of it."""
+    import torch.distributed as dist
+
+    from overiva_tpu_torch.parallel import dryrun, sharded
+    from overiva_tpu_torch.parallel.collectives import counts
+    from overiva_tpu_torch.parallel.mesh import make_mesh
+
+    out = {"families": dryrun.rank_families([(2, 2), (1, 4)], tiny, device_type)}
+    mesh = make_mesh(1, dist.get_world_size(), device_type=device_type, backend="gloo")
+    Xh = torch.from_numpy(X_head[None]).to(mesh.device_type)
+
+    def sync():
+        if Xh.is_cuda:
+            torch.cuda.synchronize()
+
+    sharded.sharded_overiva(mesh, Xh, n_src=N, n_iter=30)
+    best = float("inf")
+    for _ in range(3):
+        dist.barrier()
+        sync()
+        before = counts["psum"]
+        t0 = time.perf_counter()
+        Y = sharded.sharded_overiva(mesh, Xh, n_src=N, n_iter=30)
+        sync()
+        best = min(best, time.perf_counter() - t0)
+    out["headline"] = (Y[0].cpu().numpy(), best, counts["psum"] - before)
+    out["scaled"] = dryrun.rank_scaled(scaled, device_type)
+    out["serving"] = {tier: dryrun.rank_serving(dist.get_world_size(), device_type, clips,
+                                                n_src=N, nfft=nfft, **kw)
+                      for tier, kw in PAR_SERVE_TIERS}
+    out["jax_modules"] = dryrun.jax_modules()
+    return out
+
+
+def phase_parallel(dev, mix, images, main, serving, scene_futures, pool):
+    """The parallel tier: PAR_RANKS gloo ranks on cuda:0 (``parallel_rank``)
+    held to the single-device runs on the card: the 17 families at the dry
+    run's tiny shape (complex128, 1e-6; ``dryrun.verify_families``: every
+    rank the same, each rank's collectives the JAX epochs' count);
+    ``sharded_overiva`` at the headline within 0.1 dB of phase 5's
+    single-device run, timed beside ``api.overiva``; the 5 scaled scenes
+    (``dryrun.scaled_verdict``, the dry run's CLI's gate: c64 within 0.1
+    dB or a flip with its complex128 pair within 0.02 dB, every c64 delta
+    within ``dryrun.CONTROL_K`` times the control's, ``dryrun.control_run``
+    on the card; the scenes are ``scene_futures``, simulated in worker
+    processes since the script started, and bss_eval runs there too);
+    Separator(mesh) against meshless with the kernels' launches; then, side
+    by side, ``sharded_overiva`` on one NCCL rank and NCCL's refusal of two
+    ranks on one card. Returns the launches of (wcov_packed, update_rows)
+    on each rank over the phase: the gloo ranks', then the NCCL rank's."""
+    from overiva_tpu_torch import api, oracle
+    from overiva_tpu_torch.parallel import dryrun
+    from overiva_tpu_torch.parallel.launch import launch
+    from overiva_tpu_torch.serving import Separator
+
+    log(f"[parallel] {PAR_RANKS} gloo ranks share cuda:0 (NCCL refuses two ranks on one card): "
+        "their times are the overhead of sharding on one shared card, not scaling")
+    n = mix.shape[0]
+    start = NFFT - HOP
+    X_head = api.stft_analysis(torch.from_numpy(oracle.stft_pad(mix, NFFT, HOP)).to(dev), NFFT,
+                               device=dev)
+    single_s = best_wall_s(lambda: api.overiva(X_head, n_src=N, n_iter=30, device=dev))
+    seeds = dryrun.SCALED_SEEDS
+    scenes = {s: f.result() for s, f in scene_futures.items()}
+
+    def scored(s, Y):
+        return pool.submit(dryrun.scene_scores, Y, *scenes[s][1:])
+
+    ref_scores = {(s, dt): scored(s, api.overiva(scenes[s][0].astype(dt), n_src=3,
+                                                 n_iter=dryrun.SCALED_ITER, dtype=dt, device=dev))
+                  for dt in (np.complex64, np.complex128) for s in seeds}
+    control = {s: scored(s, dryrun.control_run(scenes[s][0], dryrun.SCALED_ITER, dev))
+               for s in seeds}
+
+    tiny = dryrun.tiny_batch(2, 2)
+    clips = [serving[f][0] for f in SERVE_FRAMES]
+    runs = [(scenes[s][0], dt) for dt in (np.complex64, np.complex128) for s in seeds]
+    t0 = time.perf_counter()
+    outs, rank_launches = zip(*launch(counted_rank, PAR_RANKS,
+                                      (parallel_rank, tiny, X_head.cpu().numpy(), runs, clips,
+                                       dev.type, NFFT),
+                                      device_type=dev.type, backend="gloo", timeout=400))
+    log(f"[parallel] the {PAR_RANKS} gloo ranks' work, spawn included: "
+        f"{time.perf_counter() - t0:.1f} s")
+    r0 = outs[0]
+    if any(o["jax_modules"] for o in outs):
+        raise AssertionError(f"a rank loaded JAX: {[o['jax_modules'] for o in outs]}")
+    Ys = dict(zip([(s, dt) for dt in (np.complex64, np.complex128) for s in seeds], r0["scaled"]))
+    sh_scores = {k: scored(k[0], Ys[k]) for k in ref_scores}
+    Y_head, head_s, head_calls = r0["headline"]
+    y_head = api.stft_synthesis(Y_head, NFFT, device=dev)[start : start + n]
+    head_score = pool.submit(score, y_head, images, n)
+
+    # --- the tiny-shape families, complex128, against the card's single-device runs
+    def families(outs, shapes, tag):
+        for name, row in dryrun.verify_families(outs, shapes, tiny, dev).items():
+            per_epoch, epochs, extra = dryrun.JAX_COLLECTIVES[name]
+            log(f"[parallel] {tag} {name}: sharded == single-device on the card ("
+                + ", ".join(f"{shape}: {worst:.2g}x tol" for shape, worst in row)
+                + f"); collectives a rank {per_epoch} an epoch x {epochs}"
+                + (f" + {extra}" if extra else "") + " (the JAX epochs')")
+
+    families([o["families"] for o in outs], [(2, 2), (1, 4)], f"gloo x{PAR_RANKS}")
+
+    # --- Separator(mesh=(4, 1)) against meshless on the card
+    for tier, kw in PAR_SERVE_TIERS:
+        ref = Separator("overiva", n_src=N, nfft=NFFT, device=dev, **kw).separate_batch(clips)
+        ys = r0["serving"][tier][0]
+        rel = max(float(np.abs(y - r).max() / np.abs(r).max()) for y, r in zip(ys, ref))
+        got = [o["serving"][tier][2] for o in outs]
+        # each rank runs one lane of each bucket group: one clip a group (on the CPU
+        # of a rehearsal the wrappers run their plain versions and count nothing)
+        want = 30 * len(clips) if "bf16pack" in tier and dev.type == "cuda" else 0
+        if any(g != {"wcov_packed": want, "update_rows": 0} for g in got):
+            raise AssertionError(f"Separator mesh {tier}: launches {got}, want {want} a rank")
+        if "c128" in tier and rel > 1e-7:
+            raise AssertionError(f"Separator mesh {tier}: {rel:.3e} from meshless (tol 1e-7)")
+        log(f"[parallel] Separator(mesh=({PAR_RANKS}, 1)) {tier}, {kw['n_iter']} it, frames "
+            f"{SERVE_FRAMES}: max|mesh - meshless| / max|meshless| {rel:.3e}"
+            + (" (tol 1e-7)" if "c128" in tier else " (printed)")
+            + f"; launches a rank: wcov_packed {[g['wcov_packed'] for g in got]} "
+            f"(want {want}), update_rows {[g['update_rows'] for g in got]}")
+
+    # --- side by side: sharded_overiva on one NCCL rank (a 1 x 1 mesh), and two NCCL
+    # ranks on cuda:0, whose refusal is printed, not gated (a CPU rehearsal of the
+    # phase has no NCCL and skips both)
+    if dev.type == "cuda":
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(2) as threads:
+            nccl = threads.submit(launch, counted_rank, 1,
+                                  (dryrun.rank_families, [(1, 1)], tiny, "cuda", ("overiva",)),
+                                  device_type="cuda", timeout=300)
+            two = threads.submit(launch, dryrun.rank_families, 2,
+                                 ([(1, 2)], dryrun.tiny_batch(1, 2), "cuda", ("overiva",)),
+                                 device_type="cuda", timeout=60)
+            [(nccl_out, nccl_launches)] = nccl.result()
+            families([nccl_out], [(1, 1)], "nccl x1")
+            rank_launches += (nccl_launches,)
+            try:
+                two.result()
+                log("[parallel] NCCL ran two ranks on one card")
+            except Exception as e:  # the expected outcome
+                text = str(e) or type(e).__name__
+                first = next((ln for ln in text.splitlines() if "uplicate" in ln),
+                             text.splitlines()[-1])
+                log(f"[parallel] NCCL refuses two ranks on cuda:0: {type(e).__name__}: "
+                    f"{first.strip()[:300]}")
+        log(f"[parallel] the NCCL launches, spawn included: {time.perf_counter() - t0:.1f} s")
+
+    # --- the kernels over the phase, each rank's counts set to 0 when it started: only
+    # the bf16pack Separator batch reaches a kernel
+    par_launches = tuple([g[k] for g in rank_launches] for k in ("wcov_packed", "update_rows"))
+    want = ([30 * len(clips) if dev.type == "cuda" else 0] * PAR_RANKS
+            + [0] * (len(rank_launches) - PAR_RANKS))
+    log(f"[parallel] launches over the phase, each rank (gloo, then NCCL): wcov_packed "
+        f"{par_launches[0]} (want {want}), update_rows {par_launches[1]} (want 0)")
+    if par_launches != (want, [0] * len(rank_launches)):
+        raise AssertionError("the parallel phase's kernel launches are off")
+
+    # --- quality: the headline and the scaled gate
+    sdr, sir = head_score.result()
+    d_head = dryrun.delta((sdr, sir), (main["sdr_32"], main["sir_32"]))
+    log(f"[parallel] sharded_overiva (1, {PAR_RANKS}) at the headline (M=8, N=3, F=2049, T=128, "
+        f"c64, 30 it) vs phase 5's api.overiva: |dSDR| {d_head[0]:.4f}, |dSIR| {d_head[1]:.4f} dB "
+        f"(tol 0.1); collectives {head_calls} = {head_calls / 30:g} an epoch (JAX: 1)")
+    if max(d_head) > 0.1 or head_calls != 30:
+        raise AssertionError("sharded headline gate failed")
+    log(f"[parallel] headline wall, best of 3: sharded_overiva on {PAR_RANKS} gloo ranks sharing "
+        f"the card {head_s * 1e3:.1f} ms (rank 0), api.overiva {single_s * 1e3:.1f} ms")
+    d = {k: dryrun.delta(sh_scores[k].result(), ref_scores[k].result()) for k in ref_scores}
+    ctrl = {s: dryrun.delta(control[s].result(), ref_scores[s, np.complex64].result())
+            for s in seeds}
+    lines, flips = dryrun.scaled_verdict({s: d[s, np.complex64] for s in seeds},
+                                         {s: d[s, np.complex128] for s in seeds}, ctrl)
+    log(f"[parallel] scaled scenes, sharded_overiva (1, {PAR_RANKS}) vs api.overiva, F=2049 M=8 "
+        f"N=3 {dryrun.SCALED_ITER} it: {'; '.join(lines)}; gated: every c128 pair within "
+        f"{dryrun.C128_TOL} dB, every c64 delta within {dryrun.C64_TOL} dB or a certified flip, "
+        f"and within {dryrun.CONTROL_K:g} x the control (api.overiva c64 on the bins reversed)")
+    return par_launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2002,8 +2236,11 @@ def main():
         serve_oracles = {f: pool.submit(oracle_scores, *clip, NFFT, HOP)
                          for f, clip in serving.items()}
         serving[128] = (mix, images)
+        from overiva_tpu_torch.parallel.dryrun import SCALED_SEEDS, scaled_mixture
+
+        scenes = {s: pool.submit(scaled_mixture, s) for s in SCALED_SEEDS}
         phases(dev, seed, timed, kernel, fused, mix, images, X64, oracle_jobs, serving,
-               serve_oracles)
+               serve_oracles, scenes, pool)
     finally:
         pool.shutdown(cancel_futures=True)
     log(f"[done] chip_smoke.py wall {time.perf_counter() - t_start:.1f} s")
@@ -2015,11 +2252,12 @@ def main():
 
 
 def phases(dev, seed, timed, kernel, fused, mix, images, X64, oracle_jobs, serving,
-           serve_oracles):
-    """Phases 4-11 and the kernels line (``kernel``, ``fused``: phases 3 and
+           serve_oracles, scenes, pool):
+    """Phases 4-12 and the kernels line (``kernel``, ``fused``: phases 3 and
     3b's entries), on phase 5's mixture ``mix`` (its STFT ``X64``);
     ``oracle_jobs``: phase 8's oracle runs; ``serving`` and
-    ``serve_oracles``: phase 11's clips and their oracle scores."""
+    ``serve_oracles``: phase 11's clips and their oracle scores;
+    ``scenes``: phase 12's simulated rooms, in the worker ``pool``."""
     timed("trajectory", phase_trajectory, dev, X64)
     main_path = timed("main path", phase_main_path, dev, mix, images, X64)
     fused_launches = timed("fused run", phase_fused_run, dev, mix, images, main_path)
@@ -2034,6 +2272,8 @@ def phases(dev, seed, timed, kernel, fused, mix, images, X64, oracle_jobs, servi
     stream_launches = timed("streaming", phase_streaming, dev, seed)
     serve_launches = timed("serving", phase_serving, dev, serving, serve_oracles, main_path,
                            requests_ms)
+    par_launches = timed("parallel", phase_parallel, dev, mix, images, main_path, serving,
+                         scenes, pool)
 
     loaded = sorted(
         m for m in sys.modules
@@ -2053,6 +2293,7 @@ def phases(dev, seed, timed, kernel, fused, mix, images, X64, oracle_jobs, servi
         "joint_launches": joint_launches[0],
         "stream_launches": stream_launches[0],
         "serve_launches": serve_launches[0],
+        "parallel_launches": par_launches[0],
     }, {
         "name": "update_rows",
         "route": "cuda",
@@ -2063,6 +2304,7 @@ def phases(dev, seed, timed, kernel, fused, mix, images, X64, oracle_jobs, servi
         "joint_launches": joint_launches[1],
         "stream_launches": stream_launches[1],
         "serve_launches": serve_launches[1],
+        "parallel_launches": par_launches[1],
     }]}))
 
 

@@ -33,6 +33,12 @@ builds simulated rooms (the copy of ``overiva_tpu/sim/``). The CLI twins
 ``python -m overiva_tpu_torch.examples.oneshot``, ``.serving``,
 ``.parity_check`` and ``.streaming`` drive them.
 
+``overiva_tpu_torch.parallel`` is the multi-device tier: a ('mix',
+'bins') ``torch.distributed`` mesh, the 17 ``sharded_*`` families of
+``overiva_tpu.parallel.sharded``, a rank launcher and a dry run
+(``python -m overiva_tpu_torch.parallel.dryrun``); ``Separator(mesh=...)``
+shards ``separate_batch`` over it.
+
 ``overiva_tpu_torch.registry`` maps the 30 algorithm names of
 ``overiva_tpu.registry`` (``get_algorithm(name)(X, n_src=...)``, and
 ``run_batch`` for a (B, T, F, M) stack) to these functions.

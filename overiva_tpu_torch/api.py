@@ -810,13 +810,18 @@ def _mnmf_slots(n_src, n_noise, M, init):
     return N_out, N_out + int(n_noise)
 
 
-def _mnmf_start(Xb, N, n_components, seeds, init, tie_g):
+def _mnmf_start(Xb, N, n_components, seeds, init, tie_g, local=None):
     """The unit-power input, its scale and the start (Q, g, W, H) of a
     FastMNMF run on the mixtures Xb (nb, T, F, M): whitened (or identity)
-    Q, diagonal-dominant g, the NMF init of each seed."""
+    Q, diagonal-dominant g, the NMF init of each seed. ``local``: a bin
+    shard's slicing of axis 2 (``parallel/sharded.py``); the scale stays
+    the whole mixtures', Xu, Q, W and an untied g are the shard's bins,
+    and the per-bin whitening runs on those alone."""
     nb, T, F, M = Xb.shape
+    pick = local or (lambda t: t)
     Xu, x_scale = _mnmf.unit_power(Xb)
-    Q = _mnmf.whiten_q(Xu) if init == "whiten" else _eyes(nb, F, M, Xb.dtype, Xb.device)
+    Xu = pick(Xu)
+    Q = _mnmf.whiten_q(Xu) if init == "whiten" else _eyes(nb, Xu.shape[2], M, Xb.dtype, Xb.device)
     g = np.full((N, M), 1e-2)
     for n in range(N):
         g[n, n % M] = 1.0
@@ -824,8 +829,9 @@ def _mnmf_start(Xb, N, n_components, seeds, init, tie_g):
     if not tie_g:  # FastMNMF1: free per-frequency spatial weights
         g = np.tile(g[:, None, :], (1, F, 1))
     g = as_tensor(g.astype(_real_np(Xb.dtype)), None, Xb.device)
+    g = g.expand(nb, *g.shape).clone()
     W, H = _nmf_init(seeds, N, F, int(n_components), T, Xb.dtype, Xb.device)
-    return Xu, x_scale, (Q, g.expand(nb, *g.shape).clone(), W, H)
+    return Xu, x_scale, (Q, g if tie_g else pick(g), pick(W), H)
 
 
 def _mnmf_images(Xu, x_scale, state, mic_index, n_out):

@@ -26,13 +26,16 @@ __all__ = ["auxiva_iss_iterations", "iss_phi", "iss_steps"]
 _EPS = 1e-15
 
 
-def iss_phi(Y, model: str, n_src=None, n_mix: int = 1):
+def iss_phi(Y, model: str, n_src=None, n_mix: int = 1, group=None, n_freq=None,
+            bin_mask=None):
     """The steering weights phi (T, B, M) of the outputs Y (T, B*F, M):
     the source model on the first n_src outputs (per mixture), phi = 1 on
-    the M - n_src background outputs."""
+    the M - n_src background outputs. ``group``, ``n_freq``,
+    ``bin_mask``: bin sharding (``models/overiva.py::mixture_activations``)."""
     T, BF, M = Y.shape
     N = M if n_src is None else n_src
-    phi = mixture_activations(Y[:, :, :N], model, n_mix).to(Y.real.dtype)  # (T, B, N)
+    phi = mixture_activations(Y[:, :, :N], model, n_mix, group, n_freq,
+                              bin_mask).to(Y.real.dtype)  # (T, B, N)
     if N < M:
         phi = torch.cat([phi, phi.new_ones((T, n_mix, M - N))], dim=2)
     return phi
@@ -59,10 +62,12 @@ def iss_steps(W, Y, phi, n_mix: int = 1):
     return W, Y
 
 
-def _iss_epoch(W, Y, model: str, n_src=None, n_mix: int = 1):
+def _iss_epoch(W, Y, model: str, n_src=None, n_mix: int = 1, group=None, n_freq=None,
+               bin_mask=None):
     """One ISS epoch on the full state: W (B*F, M, M), Y (T, B*F, M).
-    Returns the new (W, Y)."""
-    return iss_steps(W, Y, iss_phi(Y, model, n_src, n_mix), n_mix)
+    Returns the new (W, Y). ``group``, ``n_freq``, ``bin_mask``: bin
+    sharding (:func:`iss_phi`)."""
+    return iss_steps(W, Y, iss_phi(Y, model, n_src, n_mix, group, n_freq, bin_mask), n_mix)
 
 
 def auxiva_iss_iterations(X, W, n_iter: int, model: str, n_src=None, Y=None,

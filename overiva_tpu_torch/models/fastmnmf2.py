@@ -26,6 +26,7 @@ import torch
 
 from ..ops.covariance import covariance, weighted_covariance_tf
 from ..ops.linalg import align_eigvec_phase, clamp_pow2, eigh, gauss_solve, mat_h, quad_form
+from ..parallel.collectives import psum
 from .overiva import fold_mixtures
 
 __all__ = [
@@ -78,46 +79,71 @@ def _diag_power(X, Q):
     return Qx, Qx.abs() ** 2
 
 
-def _epoch(X, Q, g, W, H, wcov: str = "f32", n_q_sweeps: int = 1):
-    """One epoch. X: (nb, T, F, M); Q: (nb, F, M, M); g: (nb, N, M) or
-    (nb, N, F, M); W: (nb, N, F, L); H: (nb, N, L, T)."""
-    nb, T, F, M = X.shape
+def _fmask(x, bin_mask):
+    """Zero the padded bins (``bin_mask`` (F,)) along axis 2 of a (nb, n,
+    F, ...) tensor."""
+    if bin_mask is None:
+        return x
+    return x * bin_mask.to(x.dtype).reshape(x.shape[2], *[1] * (x.ndim - 3))
+
+
+def _weights(y, lam, g):
+    """The IS statistics (S1, S2) (nb, N, F, T) of the diagonal powers y
+    under the PSDs lam and the spatial weights g."""
+    D = _denom(lam, g)
     gs = _g_sub(g)
-    _, y = _diag_power(X, Q)  # (nb, T, F, M)
+    S1 = torch.einsum(f"btfm,{gs}->bnft", y / D**2, g)
+    S2 = torch.einsum(f"btfm,{gs}->bnft", 1.0 / D, g)
+    return S1, S2
 
-    def weights(lam):
-        D = _denom(lam, g)
-        S1 = torch.einsum(f"btfm,{gs}->bnft", y / D**2, g)
-        S2 = torch.einsum(f"btfm,{gs}->bnft", 1.0 / D, g)
-        return S1, S2
 
-    # NMF basis W: per bin
-    S1, S2 = weights(_psd(W, H))
+def _update_W(y, g, W, H):
+    """The NMF basis W, per bin."""
+    S1, S2 = _weights(y, _psd(W, H), g)
     num = torch.einsum("bnft,bnlt->bnfl", S1, H)
     den = torch.einsum("bnft,bnlt->bnfl", S2, H)
-    W = torch.clamp_min(W * torch.sqrt(num / torch.clamp_min(den, _EPS)), _EPS)
+    return torch.clamp_min(W * torch.sqrt(num / torch.clamp_min(den, _EPS)), _EPS)
 
-    # NMF activations H: sums over all of a mixture's bins
-    S1, S2 = weights(_psd(W, H))
-    num = torch.einsum("bnft,bnfl->bnlt", S1, W)
-    den = torch.einsum("bnft,bnfl->bnlt", S2, W)
-    H = torch.clamp_min(H * torch.sqrt(num / torch.clamp_min(den, _EPS)), _EPS)
 
-    # spatial weights g: tied sums over all bins and frames, untied per bin
+def _update_H(y, g, W, H, group=None, bin_mask=None):
+    """The NMF activations H: sums over all of a mixture's bins."""
+    S1, S2 = _weights(y, _psd(W, H), g)
+    num = psum(torch.einsum("bnft,bnfl->bnlt", _fmask(S1, bin_mask), W), group)
+    den = psum(torch.einsum("bnft,bnfl->bnlt", _fmask(S2, bin_mask), W), group)
+    return torch.clamp_min(H * torch.sqrt(num / torch.clamp_min(den, _EPS)), _EPS)
+
+
+def _update_g(y, g, W, H, group=None, bin_mask=None):
+    """The spatial weights g: tied sums over all bins and frames, untied
+    per bin."""
+    gs = _g_sub(g)
     lam = _psd(W, H)
     D = _denom(lam, g)
-    num = torch.einsum(f"bnft,btfm->{gs}", lam, y / D**2)
-    den = torch.einsum(f"bnft,btfm->{gs}", lam, 1.0 / D)
-    g = torch.clamp_min(g * torch.sqrt(num / torch.clamp_min(den, _EPS)), _G_FLOOR)
+    tied = g.ndim == 3  # a tied g sums over all bins, an untied one per bin
+    lam_g = _fmask(lam, bin_mask) if tied else lam
+    num = torch.einsum(f"bnft,btfm->{gs}", lam_g, y / D**2)
+    den = torch.einsum(f"bnft,btfm->{gs}", lam_g, 1.0 / D)
+    if tied:
+        num, den = psum(num, group), psum(den, group)
+    return torch.clamp_min(g * torch.sqrt(num / torch.clamp_min(den, _EPS)), _G_FLOOR)
 
-    # diagonalizer rows: sequential IP with weights 1/D (D fixed); the M
-    # covariances depend only on D, so extra sweeps reuse them
+
+def _q_covariances(X, g, W, H, wcov: str = "f32"):
+    """The M covariances of the diagonalizer rows, weights 1/D on the
+    folded (nb*F) bins; they depend only on D."""
+    nb, T, F, M = X.shape
     D = _denom(_psd(W, H), g)
     Xf = fold_mixtures(X)
-    Vs = [
+    return [
         weighted_covariance_tf(Xf, (1.0 / D[..., m]).transpose(0, 1).reshape(T, nb * F), wcov)
         for m in range(M)
     ]
+
+
+def _q_rows(Q, Vs, n_q_sweeps: int = 1):
+    """Sequential IP of the rows of Q (nb, F, M, M) on the covariances Vs,
+    ``n_q_sweeps`` sweeps."""
+    nb, F, M, _ = Q.shape
     Qf = Q.reshape(nb * F, M, M).clone()
     for _ in range(n_q_sweeps):
         for m in range(M):  # rows are order-dependent through Q
@@ -130,19 +156,38 @@ def _epoch(X, Q, g, W, H, wcov: str = "f32", n_q_sweeps: int = 1):
             q = q / torch.sqrt(torch.where(good, torch.clamp_min(nrm, _EPS), torch.ones_like(nrm)))[:, None]
             q = torch.where(good[:, None], q, Qf[:, m].conj())
             Qf[:, m] = q.conj()
-    Q = Qf.reshape(nb, F, M, M)
+    return Qf.reshape(nb, F, M, M)
 
-    # likelihood-invariant normalisation (nu sums over all bins)
+
+def _normalise(Q, g, W, H, group=None, bin_mask=None):
+    """The likelihood-invariant normalisation (phi, mu, nu; nu sums over
+    all bins)."""
+    M = Q.shape[2]
     phi = torch.einsum("bfmn,bfmn->bf", Q, Q.conj()).real / M  # (nb, F)
     Q = Q / torch.sqrt(phi)[:, :, None, None]
     W = W / phi[:, None, :, None]
     mu = g.sum(dim=-1, keepdim=True)  # (nb, N, 1) tied / (nb, N, F, 1) untied
     g = g / mu
     W = W * (mu if g.ndim == 4 else mu[..., None])
-    nu = torch.clamp_min(W.sum(dim=2, keepdim=True), _EPS)  # (nb, N, 1, L)
-    W = W / nu
-    H = H * nu.transpose(2, 3)
-    return Q, g, W, H
+    nu = torch.clamp_min(psum(_fmask(W, bin_mask).sum(dim=2, keepdim=True), group), _EPS)
+    return Q, g, W / nu, H * nu.transpose(2, 3)  # nu: (nb, N, 1, L)
+
+
+def _epoch(X, Q, g, W, H, wcov: str = "f32", n_q_sweeps: int = 1, group=None,
+           bin_mask=None):
+    """One epoch. X: (nb, T, F, M); Q: (nb, F, M, M); g: (nb, N, M) or
+    (nb, N, F, M); W: (nb, N, F, L); H: (nb, N, L, T).
+
+    Bin-sharded (``group``, ``bin_mask`` (F,) zeroing the padded bins):
+    the frequency-reduced statistics are psum'd, the H pair, the tied g
+    pair and the nu normalizer, five collectives an epoch (three for the
+    untied g of FastMNMF1, whose update is per bin)."""
+    _, y = _diag_power(X, Q)  # (nb, T, F, M)
+    W = _update_W(y, g, W, H)
+    H = _update_H(y, g, W, H, group, bin_mask)
+    g = _update_g(y, g, W, H, group, bin_mask)
+    Q = _q_rows(Q, _q_covariances(X, g, W, H, wcov), n_q_sweeps)
+    return _normalise(Q, g, W, H, group, bin_mask)
 
 
 def fastmnmf2_iterations(X, Q, g, W, H, n_iter: int, wcov: str = "f32",
@@ -172,11 +217,16 @@ def fastmnmf2_wiener(X, Q, g, W, H, mic_index: int = 0):
     return torch.einsum("bfm,bntfm->btfn", r, gain * Qx[:, None])
 
 
-def pick_loudest(Y, n_out: int):
+def pick_loudest(Y, n_out: int, group=None, bin_mask=None):
     """The ``n_out`` outputs of Y (nb, T, F, N) with the most energy in each
-    mixture, in their original order (a stable sort, as ``jnp.argsort``)."""
+    mixture, in their original order (a stable sort, as ``jnp.argsort``).
+    Bin-sharded, the energies are psum'd over ``group`` (padded bins
+    masked out) so that every rank picks the same outputs."""
     if n_out >= Y.shape[3]:
         return Y
-    en = (Y.abs() ** 2).sum(dim=(1, 2))  # (nb, N)
+    p = Y.abs() ** 2
+    if bin_mask is not None:
+        p = p * bin_mask.to(p.dtype)[:, None]
+    en = psum(p.sum(dim=(1, 2)), group)  # (nb, N)
     pick = torch.sort(torch.argsort(-en, dim=1, stable=True)[:, :n_out], dim=1).values
     return torch.gather(Y, 3, pick[:, None, None, :].expand(*Y.shape[:3], n_out))

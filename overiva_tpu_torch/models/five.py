@@ -56,13 +56,17 @@ def _fix_phase(w):
     return w * ph.conj()[:, None]
 
 
-def five_iterations(Xw, w, n_iter: int, model: str, n_mix: int = 1):
+def five_iterations(Xw, w, n_iter: int, model: str, n_mix: int = 1, group=None,
+                    n_freq=None, bin_mask=None):
     """Run ``n_iter`` minimum-eigenvector epochs in the whitened domain.
-    Xw: (T, F, M), w: (F, M)."""
+    Xw: (T, F, M), w: (F, M). ``group``, ``n_freq``, ``bin_mask``: bin
+    sharding, one power psum an epoch
+    (``models/overiva.py::mixture_activations``)."""
     T, BF, _ = Xw.shape
     F = BF // n_mix
     for _ in range(n_iter):
-        phi = mixture_activations(five_demix(Xw, w)[:, :, None], model, n_mix)
+        phi = mixture_activations(five_demix(Xw, w)[:, :, None], model, n_mix, group,
+                                  n_freq, bin_mask)
         # each mixture's phi weights its own bins
         w_tf = phi[:, :, None, 0].expand(T, n_mix, F).reshape(T, BF)
         _, E_v = eigh(weighted_covariance_tf(Xw, w_tf))

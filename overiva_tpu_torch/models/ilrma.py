@@ -22,6 +22,7 @@ import torch
 
 from ..ops.covariance import weighted_covariance_tf
 from ..ops.linalg import clamp_pow2, gauss_solve, quad_form
+from ..parallel.collectives import psum
 from .overiva import fold_mixtures
 
 __all__ = ["_ilrma_epoch", "ilrma_demix", "ilrma_iterations"]
@@ -34,10 +35,16 @@ def ilrma_demix(X, W):
     return torch.einsum("bfnm,btfm->btfn", W, X)
 
 
-def _ilrma_epoch(X, W, B, H, wcov: str = "f32"):
+def _ilrma_epoch(X, W, B, H, wcov: str = "f32", group=None, n_freq=None, bin_mask=None):
     """One epoch. X: (nb, T, F, M); W: (nb, F, M, M); B: (nb, N, F, K);
-    H: (nb, N, K, T). Returns the new (W, B, H)."""
+    H: (nb, N, K, T). Returns the new (W, B, H).
+
+    Bin-sharded (``group``, ``n_freq`` the global bin count, ``bin_mask``
+    (F,) zeroing the padded bins): the activation numerator and
+    denominator and the rescale's power sum are psum'd, three collectives
+    a source, so H stays the same on every rank."""
     nb, T, F, M = X.shape
+    mask = None if bin_mask is None else bin_mask.to(X.real.dtype)[:, None]  # (F, 1)
     P = (ilrma_demix(X, W).abs() ** 2).permute(0, 3, 2, 1)  # (nb, N, F, T)
     Xf = fold_mixtures(X)  # (T, nb*F, M): the per-bin steps
     Wf = W.reshape(nb * F, M, M).clone()
@@ -51,8 +58,11 @@ def _ilrma_epoch(X, W, B, H, wcov: str = "f32"):
         Bk = torch.clamp_min(Bk, _EPS)
         R = Bk @ Hk + _EPS
         # activations: sums over all of a mixture's bins
-        num = Bk.mT @ (Pk / R**2)  # (nb, K, T)
-        den = Bk.mT @ (1.0 / R)
+        hn, hd = Pk / R**2, 1.0 / R
+        if mask is not None:
+            hn, hd = hn * mask, hd * mask
+        num = psum(Bk.mT @ hn, group)  # (nb, K, T)
+        den = psum(Bk.mT @ hd, group)
         Hk = torch.clamp_min(Hk * torch.sqrt(num / (den + _EPS)), _EPS)
         R = Bk @ Hk + _EPS
 
@@ -69,7 +79,10 @@ def _ilrma_epoch(X, W, B, H, wcov: str = "f32"):
         # unit-power rescale: mean over each mixture's (t, f)
         w = w.reshape(nb, F, M)
         yk = torch.einsum("bfm,btfm->btf", w.conj(), X)
-        lam = torch.sqrt((yk.abs() ** 2).sum(dim=(1, 2)) / (T * F)) + _EPS  # (nb,)
+        p = yk.abs() ** 2
+        if mask is not None:
+            p = p * mask.T
+        lam = torch.sqrt(psum(p.sum(dim=(1, 2)), group) / (T * (n_freq or F))) + _EPS  # (nb,)
         w = w / lam[:, None, None]
         Wf[:, k] = w.conj().reshape(nb * F, M)
         B[:, k] = Bk / (lam**2)[:, None, None]

@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.collectives import psum
+
 __all__ = ["_ilrma_t_epoch", "ilrma_t_demix", "ilrma_t_iterations"]
 
 _EPS = 1e-15
@@ -33,10 +35,16 @@ def ilrma_t_demix(Xt, P):
     return torch.einsum("bfnj,btfj->btfn", P, Xt)
 
 
-def _ilrma_t_epoch(Xt, P, Y, B, H, n_chan: int):
+def _ilrma_t_epoch(Xt, P, Y, B, H, n_chan: int, group=None, n_freq=None, bin_mask=None):
     """One epoch. Xt: (nb, T, F, MJ); P: (nb, F, M, MJ); Y: (nb, T, F, M);
-    B: (nb, M, F, K); H: (nb, M, K, T). Returns the new (P, Y, B, H)."""
+    B: (nb, M, F, K); H: (nb, M, K, T). Returns the new (P, Y, B, H).
+
+    Bin-sharded (``group``, ``n_freq``, ``bin_mask`` as in
+    ``models/ilrma.py::_ilrma_epoch``): the activation numerator and
+    denominator of each source and the renormalization's power sums are
+    psum'd, 2M + 1 collectives an epoch; the steering is bin-local."""
     nb, T, F, MJ = Xt.shape
+    mask = None if bin_mask is None else bin_mask.to(Y.real.dtype)[:, None]  # (F, 1)
     M = n_chan
     MK = MJ - M
     Pw = (Y.abs() ** 2).permute(0, 3, 2, 1)  # (nb, M, F, T)
@@ -47,8 +55,11 @@ def _ilrma_t_epoch(Xt, P, Y, B, H, n_chan: int):
         Bk = Bk * torch.sqrt(((Pk / R**2) @ Hk.mT) / ((1.0 / R) @ Hk.mT + _EPS))
         Bk = torch.clamp_min(Bk, _EPS)
         R = Bk @ Hk + _EPS
-        num = Bk.mT @ (Pk / R**2)  # (nb, K, T): sums over the mixture's bins
-        den = Bk.mT @ (1.0 / R)
+        hn, hd = Pk / R**2, 1.0 / R
+        if mask is not None:
+            hn, hd = hn * mask, hd * mask
+        num = psum(Bk.mT @ hn, group)  # (nb, K, T): sums over the mixture's bins
+        den = psum(Bk.mT @ hd, group)
         B[:, k] = Bk
         H[:, k] = torch.clamp_min(Hk * torch.sqrt(num / (den + _EPS)), _EPS)
 
@@ -80,7 +91,10 @@ def _ilrma_t_epoch(Xt, P, Y, B, H, n_chan: int):
         P[..., M:] -= torch.stack(vs, dim=-1)
 
     # unit-power renormalization per source (likelihood-invariant)
-    lam = torch.sqrt((Y.abs() ** 2).sum(dim=(1, 2)) / (T * F)) + _EPS  # (nb, M)
+    p = Y.abs() ** 2
+    if mask is not None:
+        p = p * mask
+    lam = torch.sqrt(psum(p.sum(dim=(1, 2)), group) / (T * (n_freq or F))) + _EPS  # (nb, M)
     Y = Y / lam[:, None, None, :]
     P = P / lam[:, None, :, None]
     B = B / (lam**2)[:, :, None, None]

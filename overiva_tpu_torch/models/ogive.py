@@ -24,6 +24,7 @@ import torch
 
 from ..ops.covariance import covariance
 from ..ops.linalg import align_eigvec_phase, eigh, matvec, small_inv
+from ..parallel.collectives import pmax
 from .overiva import mixture_activations
 
 __all__ = ["CHUNK", "ogive_demix", "ogive_init", "ogive_iterations"]
@@ -77,8 +78,10 @@ def _norm(v):
 
 
 def _epoch(X, w, a, use_mix, Cx, Cx_inv, epoch, done, mu, tol, model, update,
-           switch_every, n_mix):
-    """One epoch for every folded mixture; finished mixtures stay frozen."""
+           switch_every, n_mix, group=None, n_freq=None, bin_mask=None):
+    """One epoch for every folded mixture; finished mixtures stay frozen.
+    Bin-sharded, the power is psum'd and the convergence maximum pmax'd
+    over ``group``, padded bins masked out of both."""
     T, BF, _ = X.shape
     F = BF // n_mix
 
@@ -89,7 +92,8 @@ def _epoch(X, w, a, use_mix, Cx, Cx_inv, epoch, done, mu, tol, model, update,
         refresh = bins((epoch % switch_every == 0) & ~done)
         use_mix = torch.where(refresh, _switch_mask(a, Cx, Cx_inv), use_mix)
     y = ogive_demix(X, w)  # (T, B*F)
-    phi = mixture_activations(y[:, :, None], model, n_mix)[:, :, 0]  # (T, B)
+    phi = mixture_activations(y[:, :, None], model, n_mix, group, n_freq,
+                              bin_mask)[:, :, 0]  # (T, B)
     wy = phi[:, :, None].expand(T, n_mix, F).reshape(T, BF).to(y.real.dtype) * y.conj()
     xi = torch.einsum("tf,tfm->fm", wy, X) / T
     nu = torch.clamp_min(torch.sum(wy * y, dim=0).real / T, 1e-30)
@@ -112,8 +116,10 @@ def _epoch(X, w, a, use_mix, Cx, Cx_inv, epoch, done, mu, tol, model, update,
         w_new = torch.where(use_mix[:, None], w_m, w_d)
         a_new = torch.where(use_mix[:, None], a_m, a_d)
         step = torch.where(use_mix, _norm(delta_a), _norm(resid))
-    rel_f = step / torch.clamp_min(_norm(w_new), 1e-30)
-    rel = torch.amax(rel_f.reshape(n_mix, F), dim=1)  # (B,)
+    rel_f = (step / torch.clamp_min(_norm(w_new), 1e-30)).reshape(n_mix, F)
+    if bin_mask is not None:
+        rel_f = rel_f * bin_mask.to(rel_f.dtype)
+    rel = pmax(torch.amax(rel_f, dim=1), group)  # (B,)
     keep = bins(done)[:, None]
     w_new = torch.where(keep, w, w_new)
     a_new = torch.where(keep, a, a_new)
@@ -123,7 +129,7 @@ def _epoch(X, w, a, use_mix, Cx, Cx_inv, epoch, done, mu, tol, model, update,
 
 def ogive_iterations(X, w, a, use_mix, Cx, Cx_inv, epoch, done, step_size, tol,
                      n_iter: int, model: str, update: str, switch_every: int = 10,
-                     n_mix: int = 1):
+                     n_mix: int = 1, group=None, n_freq=None, bin_mask=None):
     """Run up to ``n_iter`` more epochs, stopping each mixture once
     ``step_size * max_f ||step|| / ||w|| < tol``.
 
@@ -134,6 +140,10 @@ def ogive_iterations(X, w, a, use_mix, Cx, Cx_inv, epoch, done, step_size, tol,
     epoch and done one per mixture: pass them back in to resume. The host
     reads ``done`` once every :data:`CHUNK` epochs (counted in
     ``ogive_iterations.done_reads``) and never otherwise.
+
+    ``group``, ``n_freq``, ``bin_mask``: bin sharding, one power psum and
+    one pmax of the criterion an epoch. Every rank of ``group`` then reads
+    the same ``done`` and stops at the same epoch.
     """
     epoch = epoch.reshape(n_mix)
     done = done.reshape(n_mix)
@@ -143,7 +153,7 @@ def ogive_iterations(X, w, a, use_mix, Cx, Cx_inv, epoch, done, step_size, tol,
         for _ in range(steps):
             w, a, use_mix, epoch, done = _epoch(
                 X, w, a, use_mix, Cx, Cx_inv, epoch, done, step_size, tol, model,
-                update, switch_every, n_mix,
+                update, switch_every, n_mix, group, n_freq, bin_mask,
             )
         remaining -= steps
         ogive_iterations.done_reads += 1

@@ -17,15 +17,16 @@ A step never writes into the state it is given: it returns new tensors,
 so a snapshot of the old state (``StreamingSeparator.warmup``, a caller's
 copy) stays valid. Nothing in a step reads a value back to the host.
 
-The JAX step's ``axis_name``, ``n_freq`` and ``bin_mask`` serve its
-bin-sharded execution (``overiva_tpu/parallel/sharded.py``), which the
-port does not have yet; they are left out here.
+Bin-sharded (``parallel/sharded.py::sharded_online_iss``), a step takes
+the JAX step's hook: ``group`` (in place of ``axis_name``), ``n_freq``
+and ``bin_mask``; the per-pass (B, M) power psum is its one collective.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel.collectives import psum
 from .overiva import demix
 from .source_models import activations_from_power, power
 
@@ -69,14 +70,17 @@ def steer_source(W, Y, phi, num_n, den_n, lam, t_eff, n: int):
     return W, num_n, den_n
 
 
-def source_passes(X, W, num, den, lam, t_eff, model: str):
+def source_passes(X, W, num, den, lam, t_eff, model: str, group=None, n_freq=None,
+                  bin_mask=None):
     """One pass's M source-steering steps, in order, on frozen outputs:
     Y = W X and phi from Y, then :func:`steer_source` for n = 0..M-1.
     X: (B, F, J) (the augmented input for T-ISS); W (F, M, J); num (M, F,
-    M) complex and den (M, F, M) real. Returns (W, num, den, phi) as new
-    tensors."""
+    M) complex and den (M, F, M) real. ``group``, ``n_freq``,
+    ``bin_mask``: bin sharding, the power psum'd over ``group``. Returns
+    (W, num, den, phi) as new tensors."""
     Y = demix(X, W)
-    _, phi = activations_from_power(power(Y), Y.shape[1], model)  # (B, M)
+    pw = psum(power(Y, bin_mask), group)
+    _, phi = activations_from_power(pw, n_freq or Y.shape[1], model)  # (B, M)
     phi = phi.to(Y.real.dtype)
     nums, dens = list(num.unbind(0)), list(den.unbind(0))
     for n in range(Y.shape[2]):
@@ -95,7 +99,8 @@ def stream_emit(X_blk, Y, zn, zd, pb_lam):
 
 
 def online_iss_step(X_blk, state, forget, model: str = "laplace", n_pass: int = 1,
-                    ramp: bool = False, pb_forget=None):
+                    ramp: bool = False, pb_forget=None, group=None, n_freq=None,
+                    bin_mask=None):
     """Process one STFT block X_blk (B, F, M) complex. ``forget`` and
     ``pb_forget`` are 0-d real tensors on the block's device.
 
@@ -110,6 +115,8 @@ def online_iss_step(X_blk, state, forget, model: str = "laplace", n_pass: int = 
     ``pb_forget``: a separate (typically longer) forgetting factor for the
     projection-back statistics zn/zd; None follows lam (the ramped lam
     when ``ramp``).
+
+    ``group``, ``n_freq``, ``bin_mask``: bin sharding (:func:`source_passes`).
     """
     B = X_blk.shape[0]
     lam = forget.to(state["den"].dtype)
@@ -120,6 +127,7 @@ def online_iss_step(X_blk, state, forget, model: str = "laplace", n_pass: int = 
     W, num, den = state["W"], state["num"], state["den"]
     t_eff = state["t_eff"] * lam + B
     for _ in range(n_pass):
-        W, num, den, _ = source_passes(X_blk, W, num, den, lam, t_eff, model)
+        W, num, den, _ = source_passes(X_blk, W, num, den, lam, t_eff, model, group, n_freq,
+                                       bin_mask)
     Y_out, zn, zd = stream_emit(X_blk, demix(X_blk, W), state["zn"], state["zd"], pb_lam)
     return Y_out, {"W": W, "num": num, "den": den, "zn": zn, "zd": zd, "t_eff": t_eff}

@@ -27,8 +27,9 @@ State per stream (all on the device):
 
 At taps = 0 a step is the online ISS step exactly (same helpers, the
 same order). A step returns new tensors and never writes into the state
-it was given. The JAX step's ``axis_name``, ``n_freq`` and ``bin_mask``
-(bin-sharded execution) are left out, as in ``online_iss.py``.
+it was given. Bin-sharded, a step takes ``group``, ``n_freq`` and
+``bin_mask`` as ``online_iss.py``'s does: the tap statistics and their
+solve are per bin, so the per-pass power psum stays the one collective.
 """
 
 from __future__ import annotations
@@ -99,13 +100,17 @@ def _solve_taps(X_blk, Xd, P, phi, Rz, rp, tap_lam, diag_load: float, M: int):
 
 def online_tiss_step(X_blk, state, forget, taps: int, delay: int, model: str = "laplace",
                      n_pass: int = 1, pb_forget=None, tap_update: str = "solve",
-                     diag_load: float = 1e-5, tap_forget=None):
+                     diag_load: float = 1e-5, tap_forget=None, group=None, n_freq=None,
+                     bin_mask=None):
     """Process one STFT block X_blk (B, F, M) complex. ``forget``,
     ``pb_forget`` and ``tap_forget`` are 0-d real tensors (or None) on the
     block's device.
 
     Statistics accumulate once per pass: with n_pass > 1 the effective
     per-block decay is forget**n_pass (tap stats: tap_forget**n_pass).
+
+    ``group``, ``n_freq``, ``bin_mask``: bin sharding
+    (``online_iss.py::source_passes``).
 
     Returns (Y_blk projection-back scaled, new state)."""
     B, F, M = X_blk.shape
@@ -123,7 +128,8 @@ def online_tiss_step(X_blk, state, forget, taps: int, delay: int, model: str = "
     Xt_blk = torch.cat([X_blk, Xd], dim=2) if taps else X_blk
 
     for _ in range(n_pass):
-        P, num, den, phi = source_passes(Xt_blk, P, num, den, lam, t_eff, model)
+        P, num, den, phi = source_passes(Xt_blk, P, num, den, lam, t_eff, model, group,
+                                         n_freq, bin_mask)
         if taps and tap_update == "steer":
             P, stats["tnum"], stats["tden"] = _steer_taps(
                 Xt_blk, Xd, P, phi, stats["tnum"], stats["tden"], tap_lam, M)

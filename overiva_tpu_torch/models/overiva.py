@@ -19,6 +19,7 @@ from ..ops.covariance import covariance, weighted_covariance_all
 from ..ops.linalg import align_eigvec_phase, clamp_pow2, eigh, gauss_solve, mat_h
 from ..ops.update_rows import ip_rows, update_rows
 from ..ops.wcov_packed import pack_planes, wcov_packed
+from ..parallel.collectives import psum
 from .source_models import activations_from_power, power
 
 __all__ = [
@@ -84,25 +85,36 @@ def unfold_mixtures(Y, n_mix: int):
     return Y.reshape(T, n_mix, BF // n_mix, K).transpose(0, 1)
 
 
-def mixture_activations(Y, model: str, n_mix: int = 1):
+def mixture_activations(Y, model: str, n_mix: int = 1, group=None, n_freq=None,
+                        bin_mask=None):
     """phi (T, B, K) of the outputs Y (T, B*F, K) of ``n_mix`` folded
-    mixtures: the power sums over each mixture's own F bins."""
+    mixtures: the power sums over each mixture's own F bins.
+
+    Bin-sharded (``overiva_tpu_torch/parallel/sharded.py``): F is the
+    rank's slice, the power is psum'd over ``group`` (the one collective
+    of an epoch), ``n_freq`` is the global bin count (the gauss model
+    divides by it) and ``bin_mask`` (F,) zeroes the padded bins."""
     T, BF, K = Y.shape
     F = BF // n_mix
-    _, phi = activations_from_power(power(Y.reshape(T, n_mix, F, K)), F, model)
+    pw = psum(power(Y.reshape(T, n_mix, F, K), bin_mask), group)
+    _, phi = activations_from_power(pw, n_freq or F, model)
     return phi
 
 
 def epoch_covariances(X, W_hat, n_src: int, model: str, wcov: str = "f32",
-                      chunk_frames=None, xpack=None, n_mix: int = 1):
+                      chunk_frames=None, xpack=None, n_mix: int = 1, group=None,
+                      n_freq=None, bin_mask=None):
     """The start of an IP epoch: demix, activations, then all N weighted
     covariances (N, B*F, M, M) in one pass over X. ``xpack``: the bf16
     planes of X for ``bf16pack``, packed once per run by the caller. With
     ``n_mix`` > 1 folded mixtures (the batch forms, which have no ``wcov``)
-    each one's phi weights its own bins in the f32 tier."""
+    each one's phi weights its own bins in the f32 tier. ``group``,
+    ``n_freq``, ``bin_mask``: bin sharding, as in
+    :func:`mixture_activations`."""
     T, BF, M = X.shape
     N = n_src
-    phi = mixture_activations(demix(X, W_hat[:, :N, :]), model, n_mix)
+    phi = mixture_activations(demix(X, W_hat[:, :N, :]), model, n_mix, group, n_freq,
+                              bin_mask)
     if n_mix == 1:
         if xpack is not None:
             return wcov_packed(xpack, phi[:, 0], T).to(X.dtype)
@@ -114,12 +126,15 @@ def epoch_covariances(X, W_hat, n_src: int, model: str, wcov: str = "f32",
 
 
 def _epoch(X, W_hat, Cx, n_src: int, model: str, chunk_frames=None,
-           wcov: str = "f32", xpack=None, n_mix: int = 1):
+           wcov: str = "f32", xpack=None, n_mix: int = 1, group=None, n_freq=None,
+           bin_mask=None):
     """One epoch: activations from the current outputs, then the N IP row
-    updates in order. Returns the new W_hat."""
+    updates in order. Returns the new W_hat. ``group``, ``n_freq``,
+    ``bin_mask``: bin sharding (:func:`mixture_activations`)."""
     # all N weighted covariances up front: they depend only on the
     # epoch-start phi, so one pass over X serves every source
-    Vs = epoch_covariances(X, W_hat, n_src, model, wcov, chunk_frames, xpack, n_mix)
+    Vs = epoch_covariances(X, W_hat, n_src, model, wcov, chunk_frames, xpack, n_mix,
+                           group, n_freq, bin_mask)
     return ip_rows(W_hat, Vs, Cx, n_src)
 
 

@@ -90,12 +90,15 @@ def _pair_update(W, V_i, V_j, i: int, j: int):
 
 
 def _ip2_epoch(X, W, Cx, n_src: int, model: str, wcov: str = "f32", xpack=None,
-               n_mix: int = 1):
+               n_mix: int = 1, group=None, n_freq=None, bin_mask=None):
     """One IP2 epoch: activations, all N weighted covariances in one pass,
-    then every pair's joint update (and the OC when n_src < M)."""
+    then every pair's joint update (and the OC when n_src < M). ``group``,
+    ``n_freq``, ``bin_mask``: bin sharding
+    (``models/overiva.py::mixture_activations``)."""
     M = X.shape[2]
     N = n_src
-    Vs = epoch_covariances(X, W, N, model, wcov, xpack=xpack, n_mix=n_mix)
+    Vs = epoch_covariances(X, W, N, model, wcov, xpack=xpack, n_mix=n_mix, group=group,
+                           n_freq=n_freq, bin_mask=bin_mask)
     for i in range(N):
         for j in range(i + 1, N):
             W = _pair_update(W, Vs[i], Vs[j], i, j)

@@ -18,9 +18,16 @@ MODELS = ("laplace", "gauss")
 __all__ = ["EPS", "REL_EPS", "MODELS", "power", "activations_from_power"]
 
 
-def power(Y):
-    """Per-frame per-source power sum_f |Y|^2. Y: (..., F, N) -> (..., N)."""
-    return torch.sum(Y.abs() ** 2, dim=-2)
+def power(Y, bin_mask=None):
+    """Per-frame per-source power sum_f |Y|^2. Y: (..., F, N) -> (..., N).
+
+    When the bins are sharded, this is the rank's partial sum, to be
+    psum'd over the 'bins' group before :func:`activations_from_power`;
+    ``bin_mask`` (F,) zeroes the padded bins' contribution."""
+    p = Y.abs() ** 2
+    if bin_mask is not None:
+        p = p * bin_mask[:, None].to(p.dtype)
+    return torch.sum(p, dim=-2)
 
 
 def activations_from_power(pw, n_freq: int, model: str, eps: float = EPS):

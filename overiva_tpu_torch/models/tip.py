@@ -62,16 +62,18 @@ def _background_pieces(Xt, n_chan: int, wcov: str = "f32", n_mix: int = 1):
 
 
 def _tip_epoch(Xt, P, model: str, n_chan: int, n_src=None, wcov: str = "f32", bg=None,
-               n_mix: int = 1):
+               n_mix: int = 1, group=None, n_freq=None, bin_mask=None):
     """One T-IP epoch. Xt: (T, B*F, MJ); P: (B*F, M, MJ). ``bg``: the
     background rows' :func:`_background_pieces` (needed when n_src < M).
-    Returns the new P."""
+    ``group``, ``n_freq``, ``bin_mask``: bin sharding
+    (``models/overiva.py::mixture_activations``). Returns the new P."""
     T, BF, MJ = Xt.shape
     M = n_chan
     N = M if n_src is None else n_src
     F = BF // n_mix
     # only the N target outputs feed the activations
-    phi = mixture_activations(demix(Xt, P[:, :N, :]), model, n_mix).to(Xt.real.dtype)
+    phi = mixture_activations(demix(Xt, P[:, :N, :]), model, n_mix, group, n_freq,
+                              bin_mask).to(Xt.real.dtype)
     if N < M:
         phi = torch.cat([phi, phi.new_ones((T, n_mix, M - N))], dim=2)
 

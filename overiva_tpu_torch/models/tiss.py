@@ -69,10 +69,13 @@ def tap_steps(P, Y, Z, phi, n_mix: int = 1):
     return P, Y
 
 
-def _tiss_epoch(Xt, P, Y, model: str, n_chan: int, n_src=None, n_mix: int = 1):
+def _tiss_epoch(Xt, P, Y, model: str, n_chan: int, n_src=None, n_mix: int = 1, group=None,
+                n_freq=None, bin_mask=None):
     """One T-ISS epoch. Xt: (T, B*F, MJ); P: (B*F, M, MJ); Y: (T, B*F, M).
-    Returns the new (P, Y)."""
-    phi = iss_phi(Y, model, n_src, n_mix)
+    ``group``, ``n_freq``, ``bin_mask``: bin sharding; the tap steps are
+    bin-local, so the power psum of :func:`iss_phi` stays the one
+    collective. Returns the new (P, Y)."""
+    phi = iss_phi(Y, model, n_src, n_mix, group, n_freq, bin_mask)
     P, Y = iss_steps(P, Y, phi, n_mix)
     if Xt.shape[2] > n_chan:
         P, Y = tap_steps(P, Y, Xt[:, :, n_chan:], phi, n_mix)

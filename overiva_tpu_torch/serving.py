@@ -2,9 +2,8 @@
 (:class:`Separator`), and sample streams (:class:`StreamingSeparator`),
 with the work on the device and only samples crossing the host boundary.
 
-Counterpart of ``overiva_tpu/serving.py`` without its ``mesh`` option
-(multi-device serving waits for the port's parallel tier, ROADMAP item
-17).
+Counterpart of ``overiva_tpu/serving.py``; its ``mesh`` option runs on
+the port's parallel tier (``parallel/mesh.py``).
 
 **Clips.** A clip is padded so that its STFT lands on a geometric grid of
 frame counts (:func:`bucket_frames`, ~``bucket_ratio``-spaced, so the
@@ -54,6 +53,7 @@ the device once, in the constructor. Nothing in
 from __future__ import annotations
 
 import math
+import warnings
 from collections import Counter
 
 import numpy as np
@@ -74,6 +74,8 @@ from .models.overiva import demix, fold_mixtures, unfold_mixtures
 from .ops import stft as _stft
 from .ops.projection import apply_projection_back
 from .oracle.stft import hann, stft_pad, synthesis_window
+from .parallel.collectives import assemble
+from .parallel.mesh import AXIS_MIX, axis_size
 from .registry import get_algorithm
 from .utils.checkpoint import load_state, save_state
 from .utils.convert import as_tensor, state_to_numpy, to_torch_dtype
@@ -259,8 +261,17 @@ class Separator:
     instead, on the same device.
 
     ``device`` as in :func:`overiva_tpu_torch.resolve_device` (default
-    CUDA; without a card pass ``device="cpu"``). ``mesh`` is refused: the
-    port's multi-device tier is ROADMAP item 17.
+    CUDA; without a card pass ``device="cpu"``).
+
+    ``mesh``: a ('mix', 'bins') mesh (``parallel.mesh.make_mesh``), every
+    rank of which constructs the Separator and calls ``separate_batch``
+    with the same clips. Each bucket group is padded to a multiple of the
+    'mix' size by repeating its last clip, each rank runs its lanes
+    through the meshless group code (clips are independent: no collective
+    in the compute), and one all-reduce of zero-filled blocks over the
+    'mix' group hands every rank every clip; the pad lanes are dropped.
+    Per-clip results equal the meshless path's. Requires a fused branch;
+    ``separate()`` (one clip) is unaffected.
     """
 
     # kwargs each fused branch accepts (beyond n_iter/model, always taken)
@@ -291,11 +302,6 @@ class Separator:
         device=None,
         **algo_kwargs,
     ):
-        if mesh is not None:
-            raise ValueError(
-                "mesh serving is not in the port yet: it needs the port's "
-                "parallel tier (parallel/mesh.py, ROADMAP item 17)"
-            )
         self.spec = get_algorithm(algo)
         if algo not in SERVABLE and not allow_unverified:
             raise ValueError(
@@ -326,6 +332,27 @@ class Separator:
         self.bucket_multiple = int(bucket_multiple)
         self.algo_kwargs = dict(algo_kwargs)
         self._fused = self._fused_config()
+        if mesh is not None:
+            if self._fused is None:
+                raise ValueError(
+                    "mesh serving requires a fused branch: "
+                    f"{algo!r} with these kwargs runs through the registry "
+                    "runner (no batch axis to shard)"
+                )
+            if AXIS_MIX not in (getattr(mesh, "mesh_dim_names", None) or ()):
+                raise ValueError(
+                    f"mesh must carry a {AXIS_MIX!r} axis (parallel.mesh.make_mesh)"
+                )
+            if mesh.size() != axis_size(mesh, AXIS_MIX):
+                warnings.warn(
+                    f"serving shards ONLY the batch axis over {AXIS_MIX!r}: this "
+                    f"mesh has {mesh.size()} ranks but {AXIS_MIX}="
+                    f"{axis_size(mesh, AXIS_MIX)}, so the other axes replicate "
+                    f"every clip's compute {mesh.size() // axis_size(mesh, AXIS_MIX)}x "
+                    "for no throughput; use make_mesh(n_ranks, 1)",
+                    stacklevel=2,
+                )
+        self.mesh = mesh
         self.device = resolve_device(device)
         self._rdt = to_torch_dtype(dtype or DEFAULT_DTYPE).to_real()
         # the windows live on the device, built once: nothing in a clip's
@@ -518,12 +545,13 @@ class Separator:
         masks and activations, so a traffic mix of similar lengths pays
         one run per bucket instead of one per clip. The batch forms have
         no ``wcov`` tier: a group whose config carries ``wcov`` other than
-        "f32" (``bf16pack`` included) runs its clips one by one through
-        :meth:`separate`, so its results equal the per-clip ones by
-        construction and ``wcov_packed`` runs once an epoch for each clip.
-        Without a fused branch, groups go through the registry
-        ``run_batch``. Returns outputs in input order, each NumPy or a
-        tensor as its clip was.
+        "f32" (``bf16pack`` included) runs its clips one by one, as
+        :meth:`separate` runs each, so its results equal the per-clip ones
+        by construction and ``wcov_packed`` runs once an epoch for each
+        clip. With a ``mesh``, each rank runs its lanes of every group
+        (:meth:`_run_group_mesh`). Without a fused branch, groups go
+        through the registry ``run_batch``. Returns outputs in input
+        order, each NumPy or a tensor as its clip was.
         """
         clips = [self._clip2d(c, i) for i, c in enumerate(clips)]
         if self._fused is None:
@@ -537,28 +565,16 @@ class Separator:
 
         out: list = [None] * len(clips)
         for (_, n_chan), idxs in groups.items():
-            if self._fused is not None and self._fused["wcov"] != "f32":
-                for i in idxs:
-                    out[i] = self.separate(clips[i])
-                continue
             # all-int16 groups ride the int16 upload; mixed groups convert
             # their int16 members exactly (1/32768) first
             all_i16 = all(_is_int16(clips[i]) for i in idxs)
-            group = [clips[i] if all_i16 or not _is_int16(clips[i])
-                     else self._to_float(clips[i]) for i in idxs]
-            t_pads = [prepped[i][2] for i in idxs]
-            n_bucket = prepped[idxs[0]][3]
-            xs = [self._upload(c) for c in group]
-            xb = xs[0].new_zeros((len(idxs), n_bucket, n_chan))
-            for b, (xd, t_pad) in enumerate(zip(xs, t_pads)):
-                self._place(xb[b], xd, t_pad)
             if self._fused is None:
-                ys = self._separate_host(xb, t_pads)
+                ys = self._separate_host(self._group_bucket(clips, idxs, prepped, n_chan, all_i16),
+                                         [prepped[i][2] for i in idxs])
+            elif self.mesh is None:
+                ys = self._run_group(clips, idxs, prepped, n_chan, all_i16)
             else:
-                tp = torch.tensor(t_pads, device=self.device)
-                ys = _masked_clip(xb, tp, self.nfft, self.hop,
-                                  dict(n_src=self.n_src, **self._fused), self._win,
-                                  self._win_s, self.pcm_out)
+                ys = self._run_group_mesh(clips, idxs, prepped, n_chan, all_i16)
             # one download for the group when any of its clips is NumPy
             host = None
             if any(not isinstance(clips[i], torch.Tensor) for i in idxs):
@@ -570,6 +586,48 @@ class Separator:
                 out[i] = ys[b, span] if tensor_in else host[b, span]
                 self._count(t_real, t_pad, n_chan)
         return out
+
+    def _group_bucket(self, clips, idxs, prepped, n_chan, all_i16):
+        """The clips ``idxs`` placed in their zeroed buckets on the device:
+        (len(idxs), n_bucket, n_chan), int16 when ``all_i16``."""
+        xs = [self._upload(clips[i] if all_i16 or not _is_int16(clips[i])
+                           else self._to_float(clips[i])) for i in idxs]
+        xb = xs[0].new_zeros((len(idxs), prepped[idxs[0]][3], n_chan))
+        for b, (xd, i) in enumerate(zip(xs, idxs)):
+            self._place(xb[b], xd, prepped[i][2])
+        return xb
+
+    def _run_group(self, clips, idxs, prepped, n_chan, all_i16):
+        """The separated buckets (len(idxs), n_bucket, n_out) of the clips
+        ``idxs`` through the device-resident path: folded into one run, or
+        clip by clip when the config carries a ``wcov`` tier (the batch
+        forms have none)."""
+        xb = self._group_bucket(clips, idxs, prepped, n_chan, all_i16)
+        cfg = dict(n_src=self.n_src, **self._fused)
+        t_pads = [prepped[i][2] for i in idxs]
+        if self._fused["wcov"] != "f32":
+            return torch.stack([
+                _masked_clip(x, t_pad, self.nfft, self.hop, cfg, self._win, self._win_s,
+                             self.pcm_out)
+                for x, t_pad in zip(xb, t_pads)
+            ])
+        tp = torch.tensor(t_pads, device=self.device)
+        return _masked_clip(xb, tp, self.nfft, self.hop, cfg, self._win, self._win_s,
+                            self.pcm_out)
+
+    def _run_group_mesh(self, clips, idxs, prepped, n_chan, all_i16):
+        """:meth:`_run_group` over the mesh's 'mix' axis: the group padded
+        to a multiple of the axis size by repeating its last clip, this
+        rank's lanes run, every lane assembled on every rank of the 'mix'
+        group, the pad lanes dropped."""
+        n_lanes = axis_size(self.mesh, AXIS_MIX)
+        lanes = idxs + [idxs[-1]] * (-len(idxs) % n_lanes)
+        per = len(lanes) // n_lanes
+        mine = slice(self.mesh.get_coordinate()[0] * per, (self.mesh.get_coordinate()[0] + 1) * per)
+        ys = self._run_group(clips, lanes[mine], prepped, n_chan, all_i16)
+        full = ys.new_zeros((len(lanes), *ys.shape[1:]))
+        full[mine] = ys
+        return assemble(full, self.mesh.get_group(AXIS_MIX))[: len(idxs)]
 
     def warmup(self, n_chan: int, n_samples: int, seed: int = 0, dtype=None) -> int:
         """Run every bucket needed up to ``n_samples`` once.

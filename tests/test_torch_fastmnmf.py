@@ -22,6 +22,7 @@ from overiva_tpu.models import fastmnmf2 as jmnmf
 from overiva_tpu_torch import api as tapi
 from overiva_tpu_torch import oracle as toracle
 from overiva_tpu_torch.models import fastmnmf2 as tmnmf
+from overiva_tpu_torch.ops.covariance import covariance
 
 from helpers import make_mixture, stft_mixture
 
@@ -91,6 +92,28 @@ def test_whiten_q_matches_jax(mixture32):
     Q = tmnmf.whiten_q(Xu)[0].resolve_conj().numpy()
     Xj, _ = jmnmf.unit_power(mixture32[2])
     _close(Q, jmnmf.whiten_q(Xj), rtol=1e-9, atol=1e-12)
+
+
+def test_whitening_start_is_set_only_to_1e3_eps_in_complex64():
+    """The cause of the complex64 FastMNMF misses on the card (ROADMAP Queue
+    3). With more mics than sources, the noise eigenvalues of a bin's input
+    covariance lie within ~1e-4 of the largest, and complex64's ``eigh``
+    fixes their eigenvectors only to ~5e-4 of max|Q| here, thousands of
+    times its rounding, worst in the bins with the smallest eigenvalue gap.
+    LAPACK (CPU) and cuSOLVER (CUDA) land that far apart, and farther on
+    larger scenes (``examples/fastmnmf_stages.py``); the run follows."""
+    rng = np.random.default_rng(11)
+    mix, _, _ = make_mixture(rng, n_src=2, n_mics=5, n_samples=12000, n_taps=8, snr_db=25)
+    X = torch.from_numpy(stft_mixture(mix, 256).astype(np.complex64))[None]
+    Xu, _ = tmnmf.unit_power(X)
+    Q64 = tmnmf.whiten_q(Xu)[0].to(torch.complex128)
+    Q128 = tmnmf.whiten_q(Xu.to(torch.complex128))[0]
+    rel = (Q64 - Q128).abs().amax(dim=(1, 2)) / Q128.abs().amax(dim=(1, 2))
+    ev = torch.linalg.eigvalsh(covariance(Xu[0].to(torch.complex128)))
+    gap = (ev[:, 1:] - ev[:, :-1]).min(dim=1).values / ev[:, -1]
+    assert rel.max() > 1e3 * 2.0**-23
+    worst = torch.argsort(rel, descending=True)[:10]
+    assert gap[worst].median() < 0.5 * gap.median()
 
 
 def test_callback_and_bf16_tier(mixture32):

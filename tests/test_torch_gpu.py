@@ -3,7 +3,9 @@
 fused epoch, the ISS, IP2, FIVE and OGIVE families, the per-(t,f)-weighted
 and joint families, the streaming classes and the clip-serving
 ``Separator`` on the card against the same on the CPU (the streaming
-blocks and a Separator clip also without a host sync).
+blocks and a Separator clip also without a host sync), and the parallel
+tier: gloo ranks sharing the card, one NCCL rank, ``Separator(mesh=...)``
+launch counts, and the FastMNMF whitening start's card-vs-CPU spread.
 
 Every test here needs a card and skips without one. This file imports no
 JAX, so it also runs where JAX is not installed:
@@ -622,3 +624,77 @@ def test_separator_never_syncs_the_host(cuda):
         assert y.is_cuda and y.shape == (clip.shape[0], 2)
         assert y.dtype == (torch.int16 if "out_dtype" in extra else torch.float32)
         np.testing.assert_array_equal(y.cpu().numpy(), sep.separate(clip))
+
+
+# ------------------------------------------------------ the parallel tier
+
+def test_parallel_gloo_ranks_share_one_card(cuda):
+    """Four gloo ranks on cuda:0 (NCCL refuses two ranks on one card): the
+    sharded families on meshes (2, 2) and (1, 4) at complex128 equal the
+    single-device runs on the card, each rank making the JAX epochs' count
+    of collectives."""
+    from overiva_tpu_torch.parallel import dryrun
+    from overiva_tpu_torch.parallel.launch import launch
+
+    X = dryrun.tiny_batch(2, 2)
+    names = ("overiva", "ogive", "fastmnmf2", "sparseauxiva", "online_tiss")
+    outs = launch(dryrun.rank_families, 4, ([(2, 2), (1, 4)], X, "cuda", names),
+                  device_type="cuda", backend="gloo", timeout=300)
+    for shape in ((2, 2), (1, 4)):
+        for name in names:
+            Y, calls = outs[0][shape, name]
+            assert [o[shape, name][1] for o in outs] == [
+                dryrun.expected_collectives(name, X.shape[0] // shape[0])] * 4
+            assert dryrun.check_family(Y, X, name, cuda) <= 1.0, (shape, name)
+
+
+def test_parallel_nccl_one_rank(cuda):
+    """A 1 x 1 mesh on NCCL: sharded_overiva equals api.overiva on the card."""
+    from overiva_tpu_torch.parallel import dryrun
+    from overiva_tpu_torch.parallel.launch import launch
+
+    X = dryrun.tiny_batch(1, 1)
+    out = launch(dryrun.rank_families, 1, ([(1, 1)], X, "cuda", ("overiva",)),
+                 device_type="cuda", timeout=300)[0]
+    assert dryrun.check_family(out[(1, 1), "overiva"][0], X, "overiva", cuda) <= 1.0
+
+
+def test_separator_mesh_bf16pack_launches(cuda):
+    """Separator(mesh=(4, 1), wcov="bf16pack") on four gloo ranks on the
+    card: each rank launches wcov_packed once an epoch for each clip it
+    runs (the pad lane included), never update_rows, and every clip
+    equals the meshless bf16pack run on the card."""
+    from overiva_tpu_torch.parallel import dryrun
+    from overiva_tpu_torch.parallel.launch import launch
+    from overiva_tpu_torch.serving import Separator
+
+    clips = dryrun.serve_clips()  # two buckets: 3 + 2 clips -> lanes 4 + 4
+    kw = dict(dtype=np.complex64, n_iter=5, wcov="bf16pack")
+    outs = launch(dryrun.rank_serving, 4, (4, "cuda", clips), kw, device_type="cuda",
+                  backend="gloo", timeout=300)
+    refs = Separator("overiva", n_src=2, nfft=128, device=cuda, **kw).separate_batch(clips)
+    for ys, _, launches in outs:
+        assert launches == dict(wcov_packed=5 * 2, update_rows=0)
+        for y, r in zip(ys, refs):
+            np.testing.assert_allclose(y, r, rtol=0, atol=1e-5 * np.abs(r).max())
+
+
+def test_fastmnmf_whitening_eigh_card_vs_cpu(cuda):
+    """The cause of the complex64 FastMNMF misses on the card (ROADMAP
+    Queue 3): the whitening start's ``eigh`` (cuSOLVER on the card, LAPACK
+    on the CPU) agrees to rounding in complex128 and leaves complex64
+    rounding far behind in complex64 on parity_check's seed-7 scene."""
+    from overiva_tpu_torch import oracle
+    from overiva_tpu_torch.examples.parity_check import build_mixture
+    from overiva_tpu_torch.models import fastmnmf2 as mn
+
+    mix, _ = build_mixture(7)
+    X = torch.from_numpy(oracle.analysis(oracle.stft_pad(mix, 1024, 512), 1024, 512))[None]
+
+    def rel(dtype):
+        Xu, _ = mn.unit_power(X.to(dtype))
+        a, b = mn.whiten_q(Xu.to(cuda)).cpu(), mn.whiten_q(Xu)
+        return float((a - b).abs().max() / b.abs().max())
+
+    assert rel(torch.complex128) < 1e-9
+    assert rel(torch.complex64) > 1e3 * 2.0**-23

@@ -237,6 +237,17 @@ def test_sparse_helpers_bit_for_bit(X4):
     _equal(tsparse.sparir(B, S, 128, support, 0.05, 40), jsparse.sparir(B, S, 128, support, 0.05, 40))
 
 
+def test_pad_bins_bit_for_bit():
+    """The port's copy of the JAX tier's NumPy-only ``pad_bins``."""
+    from overiva_tpu.parallel.sharded import pad_bins as jpad
+    from overiva_tpu_torch.parallel.sharded import pad_bins as tpad
+
+    for F, n in ((9, 2), (9, 4), (17, 8), (2049, 4), (2049, 1), (513, 3)):
+        (tF, tmask), (jF, jmask) = tpad(F, n), jpad(F, n)
+        assert tF == jF and tmask.dtype == jmask.dtype
+        _equal(tmask, jmask)
+
+
 def test_bss_eval_sources_bit_for_bit():
     """A 3-source case, with and without the permutation search."""
     rng = np.random.default_rng(6)
@@ -386,7 +397,8 @@ def test_port_never_imports_the_jax_package():
     for rel in ("sim/room.py", "sim/_native.py", "utils/checkpoint.py", "serving.py",
                 "examples/streaming.py", "examples/oneshot.py", "examples/serving.py",
                 "examples/parity_check.py", "utils/audio.py", "utils/profiling.py",
-                "oracle/auxiva_pca.py"):
+                "oracle/auxiva_pca.py", "parallel/mesh.py", "parallel/sharded.py",
+                "parallel/launch.py", "parallel/dryrun.py", "parallel/collectives.py"):
         assert REPO / "overiva_tpu_torch" / rel in files
     offenders = {}
     for path in files:

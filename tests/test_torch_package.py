@@ -40,6 +40,9 @@ def test_package_never_imports_jax():
         "from overiva_tpu_torch.ops import covariance, linalg, projection, stft\n"
         "from overiva_tpu_torch.ops import update_rows, wcov_packed, wpe\n"
         "from overiva_tpu_torch import registry\n"
+        "from overiva_tpu_torch.parallel import collectives, dryrun, launch, mesh, sharded\n"
+        "from overiva_tpu_torch.examples import fastmnmf_stages\n"
+        "assert len(sharded.__all__) == 17\n"
         "from overiva_tpu_torch.utils import convert, threefry\n"
         "from overiva_tpu_torch import metrics, oracle\n"
         "from overiva_tpu_torch.metrics import bss_eval\n"

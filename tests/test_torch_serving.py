@@ -249,8 +249,10 @@ def test_refusals(mixture):
         _sep("overiva", proj_back=False)
     with pytest.raises(ValueError, match="bf16pack"):
         _sep("tip", n_src=2, wcov="bf16pack")
-    with pytest.raises(ValueError, match="ROADMAP item 17"):
+    with pytest.raises(ValueError, match="'mix' axis"):
         _sep("overiva", n_src=2, mesh=object())
+    with pytest.raises(ValueError, match="fused branch"):
+        _sep("ilrma", allow_unverified=True, mesh=object())
     with pytest.raises(ValueError, match="one source"):
         _sep("five", n_src=2)
     with pytest.raises(ValueError, match="n_samples, n_chan"):
