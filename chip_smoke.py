@@ -18,6 +18,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    version at the headline and ragged shapes (F=129, not a multiple of the
    warp kernel's bins per block) and on knife-edge bins, with the kernel,
    plain and eager-epoch times and the bound;
+3c. entry: ``overiva_tpu_torch.entry.entry()`` (one ``_epoch`` at T=128,
+   F=513, M=8, N=3, the twin of ``__graft_entry__.entry``) on the card,
+   its W against the same function on the CPU (``ENTRY_TOL``), both
+   kernels' counters at 0, and the median of 20 queued calls beside the
+   card's name and power limit;
 4. trajectory: OverIVA in complex128 on the card against the float64 NumPy
    oracle at full width (M=8, N=3, nfft 4096, T=128), 10 iterations;
 5. main path: stft_analysis -> overiva (wcov="f32" and "bf16pack", complex64,
@@ -50,7 +55,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    through iSTFT and bss_eval (FastMNMF2/1 at 12 epochs gated at 0.1 dB;
    ILRMA at 8, FastMNMF2 at 30 and SparseAuxIVA at 20 printed, the last
    beside the oracle's own complex64 run: at 8 outputs the complex64
-   floor of the reference is dB-sized there), every
+   floor of the reference is dB-sized there), FastMNMF2/1 in complex64 on
+   ``examples/parity_check.py``'s seed-7 scene printed beside the JAX
+   function's spread over rotations of its whitening start (a complex64
+   floor of the reference), every
    run's kernel counters at 0, ``wcov_packed`` in both IP phases of
    SparseAuxIVA's bf16pack tier (20 + 3 launches, within 0.3 dB mean SIR of
    f32), each family's time with its device ops an epoch and busy share,
@@ -111,12 +119,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``sharded_overiva`` at the headline on (1, 4), complex64, within 0.1 dB
    of phase 5's ``api.overiva``, its best-of-3 wall beside api.overiva's
    (overhead on one shared card, not scaling); the dry run's 5 scaled
-   scenes (simulated rooms, F=2049, 20 iterations) under the dry run's
-   gate (``dryrun.scaled_verdict``): every seed's complex128 pair within
-   0.02 dB, every complex64 delta within 0.1 dB or a certified flip and
-   within ``dryrun.CONTROL_K`` times the control's, the single-device run
-   on its bins reversed (this frame-starved scene's complex64 spread), the
-   JAX dry run's rule of at most one flip printed; ``Separator(mesh=(4,
+   scenes (simulated rooms, F=2049, 20 iterations) of both lengths
+   (``dryrun.SCALED_SCENES``: the JAX dry run's 48 frames, and 128) under
+   the dry run's gate (``dryrun.scaled_verdict``): every seed's complex128
+   pair within 0.02 dB, every complex64 delta within 0.1 dB or a
+   certified flip and within ``dryrun.CONTROL_K`` times the control's,
+   the single-device run on its bins reversed (complex64's own spread on
+   the scene, which reaches 0.1 dB at both lengths), printed beside it,
+   the JAX dry run's rule of at most one flip printed; ``Separator(mesh=(4,
    1))`` at 64 / 128 / 256 frames against meshless (complex128 within
    1e-7; complex64 f32 and bf16pack printed) with ``wcov_packed`` at 30
    launches for each clip a rank runs; ``sharded_overiva`` on one NCCL
@@ -263,6 +273,35 @@ def cuda_ms(fn, repeats=20, warmup=3, queued=False):
     return start.elapsed_time(end) / repeats
 
 
+def queued_call_ms(fn, repeats=20):
+    """Each of ``repeats`` calls of ``fn`` timed alone by CUDA events, the
+    call queued behind a device-side sleep twice as long as the host takes
+    to enqueue it, so that its events read the device's time: the times in
+    ms, and the synchronised host walls of as many calls in ms."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(repeats):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(int(2e9 * (2 * host_s + 1e-3)))
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return [a.elapsed_time(b) for a, b in events], walls
+
+
 def best_wall_s(fn, repeats=3):
     """Best synchronised wall time of ``fn`` after one warm-up call."""
     fn()
@@ -278,15 +317,19 @@ def best_wall_s(fn, repeats=3):
 
 # ----------------------------------------------------------------- phases
 
+def card_and_limit():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
 def phase_device():
     from overiva_tpu_torch import resolve_device
 
     dev = resolve_device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    log(f"[device] {smi}")
+    log(f"[device] {card_and_limit()}")
     log(
         f"[device] torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}"
@@ -454,6 +497,44 @@ def phase_fused_kernel(dev, seed):
             line += " (20 runs)"
         log(line)
     return result
+
+
+# max|card - CPU| / max|CPU| of entry()'s W (complex64): the CPU's figure
+# against the JAX entry is 4.2e-07, each within 4.8e-07 of complex128
+ENTRY_TOL = 2e-6
+
+
+def phase_entry(dev):
+    """``overiva_tpu_torch.entry.entry()`` on the card: one ``_epoch`` at
+    T=128, F=513, M=8, N=3 (complex64), its W against the same ``fn`` on
+    the CPU within ENTRY_TOL, both kernels' counters at 0 over the call,
+    and the median of 20 queued calls with the card's name and power
+    limit. Returns the launches of (wcov_packed, update_rows)."""
+    from overiva_tpu_torch.entry import entry
+    from overiva_tpu_torch.ops.update_rows import update_rows
+    from overiva_tpu_torch.ops.wcov_packed import wcov_packed
+
+    fn, args = entry()
+    if any(a.device.type != "cuda" or a.dtype != torch.complex64 for a in args):
+        raise AssertionError("entry() did not give complex64 tensors on the card")
+    wcov_packed.launches = update_rows.launches = 0
+    W = fn(*args)
+    torch.cuda.synchronize()
+    launches = (wcov_packed.launches, update_rows.launches)
+    fn_cpu, args_cpu = entry(device="cpu")
+    W_cpu = fn_cpu(*args_cpu)
+    err = float((W.cpu() - W_cpu).abs().max() / W_cpu.abs().max())
+    ms, walls = queued_call_ms(lambda: fn(*args))
+    line = (f"[entry] entry(): one _epoch (T=128, F=513, M=8, N=3, laplace, c64) on the card, "
+            f"W {tuple(W.shape)}: max|card - CPU| / max|CPU| {err:.2e} (tol {ENTRY_TOL:g}); "
+            f"launches of wcov_packed {launches[0]}, of update_rows {launches[1]} (want 0, 0); "
+            f"20 queued calls: median {np.median(ms):.3f} ms (min {min(ms):.3f}, max "
+            f"{max(ms):.3f}), synchronised host wall median {np.median(walls):.3f} ms; "
+            f"{card_and_limit()}")
+    if not bool(torch.isfinite(W).all()) or err > ENTRY_TOL or launches != (0, 0):
+        raise AssertionError(line)
+    log(line)
+    return launches
 
 
 def rel_err(a, b):
@@ -953,6 +1034,43 @@ def oracle_job(name, X, epochs=(), **kw):
     return out, time.perf_counter() - t0
 
 
+# The JAX package's FastMNMF2/1 on parity_check's seed-7 scene in complex64,
+# from the complex64 whitening start with its noise eigenspace turned by
+# each of five seeded unitaries: |dSDR| and |dSIR| (dB) against the f64
+# oracle, least and most over the rotations (`python
+# tests/test_torch_fastmnmf_rotation.py`, on the CPU; ROADMAP "Known
+# complex64 floors")
+FASTMNMF_JAX_ROTATION_SPREAD = {
+    "fastmnmf2": ((0.0429, 0.9743), (0.1356, 2.4744)),
+    "fastmnmf": ((0.0591, 0.8895), (0.1309, 2.3716)),
+}
+
+
+def fastmnmf_seed7(dev, oracle_jobs):
+    """Prints seed 7's complex64 FastMNMF2/1 deltas on the card against the
+    f64 oracle (parity_check's row) beside the JAX function's spread over
+    rotations of its start: a complex64 floor of the reference, printed."""
+    from overiva_tpu_torch import api
+    from overiva_tpu_torch.examples import fastmnmf_stages
+    from overiva_tpu_torch.parallel import dryrun
+
+    mix, premix, _ = oracle_jobs["seed 7", "scene"].result()
+    ref = oracle_jobs["seed 7", "oracle"].result()
+    for name, (sdr_range, sir_range) in FASTMNMF_JAX_ROTATION_SPREAD.items():
+        got = fastmnmf_stages.run_pipeline(
+            lambda X: getattr(api, name)(X, n_src=fastmnmf_stages.N_SRC,
+                                         n_iter=fastmnmf_stages.N_ITER,
+                                         seed=fastmnmf_stages.NMF_SEED, device=dev),
+            mix, premix, fastmnmf_stages.NFFT)
+        d_sdr, d_sir = dryrun.delta(got, ref[name])
+        log(f"[tf-families] c64 {name} on parity_check's seed 7 (M=5, N=2, nfft 1024, "
+            f"{fastmnmf_stages.N_ITER} it) on the card: |dSDR| {d_sdr:.4f}, |dSIR| {d_sir:.4f} dB "
+            f"against the f64 oracle; the JAX function from 5 rotations of its complex64 "
+            f"start's noise eigenspace (CPU): |dSDR| {sdr_range[0]:.4f}-{sdr_range[1]:.4f}, "
+            f"|dSIR| {sir_range[0]:.4f}-{sir_range[1]:.4f} (printed: a complex64 floor of the "
+            f"reference; the c128 rows above are the gate)")
+
+
 # phase 8's c64 rows: name, arguments, outputs scored by correlation,
 # epochs gated, printed. SparseAuxIVA is printed: at 8 outputs its complex64
 # runs sit up to a few dB SIR from the f64 oracle, the oracle's own complex64
@@ -969,7 +1087,9 @@ def submit_tf_oracles(pool, X64):
     """Phase 8's f64 oracle runs on ``pool``: {("c128", name): the c128
     row's run with its filters, ("c64", name): the c64 row's {epochs: Y}
     where the c128 run does not give it, ("c64 input", "sparseauxiva"):
-    the oracle on the complex64-rounded STFT}."""
+    the oracle on the complex64-rounded STFT, ("seed 7", "scene") and
+    ("seed 7", "oracle"): parity_check's seed-7 scene and its FastMNMF2/1
+    oracle scores}."""
     jobs = {("c128", name): pool.submit(oracle_job, name, X64, return_filters=True, **kw)
             for name, kw, _, _ in TF_C128}
     c128_epochs = {name: kw.get("n_iter") for name, kw, _, _ in TF_C128}
@@ -979,6 +1099,10 @@ def submit_tf_oracles(pool, X64):
             jobs["c64", name] = pool.submit(oracle_job, name, X64, epochs, **kw)
     jobs["c64 input", "sparseauxiva"] = pool.submit(oracle_job, "sparseauxiva",
                                                     X64.astype(np.complex64))
+    from overiva_tpu_torch.examples import fastmnmf_stages
+
+    jobs["seed 7", "scene"] = pool.submit(fastmnmf_stages.parity_scene, 7)
+    jobs["seed 7", "oracle"] = pool.submit(fastmnmf_stages.oracle_scores, 7)
     return jobs
 
 
@@ -1043,6 +1167,7 @@ def phase_tf_families(dev, mix, images, X64, main, oracle_jobs):
         if bad:
             raise AssertionError(line + "; " + "; ".join(bad))
         log(line)
+    fastmnmf_seed7(dev, oracle_jobs)
 
     # --- c64 quality through iSTFT and bss_eval, each run's counters read
     x = torch.from_numpy(oracle.stft_pad(mix, NFFT, HOP)).to(dev)
@@ -2059,10 +2184,12 @@ def phase_parallel(dev, mix, images, main, serving, scene_futures, pool):
     rank the same, each rank's collectives the JAX epochs' count);
     ``sharded_overiva`` at the headline within 0.1 dB of phase 5's
     single-device run, timed beside ``api.overiva``; the 5 scaled scenes
-    (``dryrun.scaled_verdict``, the dry run's CLI's gate: c64 within 0.1
-    dB or a flip with its complex128 pair within 0.02 dB, every c64 delta
-    within ``dryrun.CONTROL_K`` times the control's, ``dryrun.control_run``
-    on the card; the scenes are ``scene_futures``, simulated in worker
+    of each length in ``dryrun.SCALED_SCENES`` (``dryrun.scaled_verdict``,
+    the dry run's CLI's gate: c64 within 0.1 dB or a flip with its
+    complex128 pair within 0.02 dB, every c64 delta within
+    ``dryrun.CONTROL_K`` times the control's, ``dryrun.control_run`` on
+    the card; the scenes are
+    ``scene_futures`` {(frames, seed): scene}, simulated in worker
     processes since the script started, and bss_eval runs there too);
     Separator(mesh) against meshless with the kernels' launches; then, side
     by side, ``sharded_overiva`` on one NCCL rank and NCCL's refusal of two
@@ -2081,20 +2208,23 @@ def phase_parallel(dev, mix, images, main, serving, scene_futures, pool):
                                device=dev)
     single_s = best_wall_s(lambda: api.overiva(X_head, n_src=N, n_iter=30, device=dev))
     seeds = dryrun.SCALED_SEEDS
-    scenes = {s: f.result() for s, f in scene_futures.items()}
+    scenes = {k: f.result() for k, f in scene_futures.items()}  # (frames, seed) -> scene
+    keys = [(f, s, dt) for f in dryrun.SCALED_SCENES for dt in (np.complex64, np.complex128)
+            for s in seeds]
 
-    def scored(s, Y):
-        return pool.submit(dryrun.scene_scores, Y, *scenes[s][1:])
+    def scored(f, s, Y):
+        return pool.submit(dryrun.scene_scores, Y, *scenes[f, s][1:])
 
-    ref_scores = {(s, dt): scored(s, api.overiva(scenes[s][0].astype(dt), n_src=3,
-                                                 n_iter=dryrun.SCALED_ITER, dtype=dt, device=dev))
-                  for dt in (np.complex64, np.complex128) for s in seeds}
-    control = {s: scored(s, dryrun.control_run(scenes[s][0], dryrun.SCALED_ITER, dev))
-               for s in seeds}
+    ref_scores = {(f, s, dt): scored(f, s, api.overiva(scenes[f, s][0].astype(dt), n_src=3,
+                                                       n_iter=dryrun.SCALED_ITER, dtype=dt,
+                                                       device=dev))
+                  for f, s, dt in keys}
+    control = {(f, s): scored(f, s, dryrun.control_run(scenes[f, s][0], dryrun.SCALED_ITER, dev))
+               for f, s in scenes}
 
     tiny = dryrun.tiny_batch(2, 2)
     clips = [serving[f][0] for f in SERVE_FRAMES]
-    runs = [(scenes[s][0], dt) for dt in (np.complex64, np.complex128) for s in seeds]
+    runs = [(scenes[f, s][0], dt) for f, s, dt in keys]
     t0 = time.perf_counter()
     outs, rank_launches = zip(*launch(counted_rank, PAR_RANKS,
                                       (parallel_rank, tiny, X_head.cpu().numpy(), runs, clips,
@@ -2105,8 +2235,8 @@ def phase_parallel(dev, mix, images, main, serving, scene_futures, pool):
     r0 = outs[0]
     if any(o["jax_modules"] for o in outs):
         raise AssertionError(f"a rank loaded JAX: {[o['jax_modules'] for o in outs]}")
-    Ys = dict(zip([(s, dt) for dt in (np.complex64, np.complex128) for s in seeds], r0["scaled"]))
-    sh_scores = {k: scored(k[0], Ys[k]) for k in ref_scores}
+    Ys = dict(zip(keys, r0["scaled"]))
+    sh_scores = {k: scored(*k[:2], Ys[k]) for k in keys}
     Y_head, head_s, head_calls = r0["headline"]
     y_head = api.stft_synthesis(Y_head, NFFT, device=dev)[start : start + n]
     head_score = pool.submit(score, y_head, images, n)
@@ -2187,15 +2317,17 @@ def phase_parallel(dev, mix, images, main, serving, scene_futures, pool):
         raise AssertionError("sharded headline gate failed")
     log(f"[parallel] headline wall, best of 3: sharded_overiva on {PAR_RANKS} gloo ranks sharing "
         f"the card {head_s * 1e3:.1f} ms (rank 0), api.overiva {single_s * 1e3:.1f} ms")
-    d = {k: dryrun.delta(sh_scores[k].result(), ref_scores[k].result()) for k in ref_scores}
-    ctrl = {s: dryrun.delta(control[s].result(), ref_scores[s, np.complex64].result())
-            for s in seeds}
-    lines, flips = dryrun.scaled_verdict({s: d[s, np.complex64] for s in seeds},
-                                         {s: d[s, np.complex128] for s in seeds}, ctrl)
-    log(f"[parallel] scaled scenes, sharded_overiva (1, {PAR_RANKS}) vs api.overiva, F=2049 M=8 "
-        f"N=3 {dryrun.SCALED_ITER} it: {'; '.join(lines)}; gated: every c128 pair within "
-        f"{dryrun.C128_TOL} dB, every c64 delta within {dryrun.C64_TOL} dB or a certified flip, "
-        f"and within {dryrun.CONTROL_K:g} x the control (api.overiva c64 on the bins reversed)")
+    d = {k: dryrun.delta(sh_scores[k].result(), ref_scores[k].result()) for k in keys}
+    for f in dryrun.SCALED_SCENES:
+        ctrl = {s: dryrun.delta(control[f, s].result(), ref_scores[f, s, np.complex64].result())
+                for s in seeds}
+        lines, _ = dryrun.scaled_verdict({s: d[f, s, np.complex64] for s in seeds},
+                                         {s: d[f, s, np.complex128] for s in seeds}, ctrl)
+        log(f"[parallel] scaled scenes T={f}, sharded_overiva (1, {PAR_RANKS}) vs api.overiva, "
+            f"F=2049 M=8 N=3 {dryrun.SCALED_ITER} it: {'; '.join(lines)}; gated: every c128 pair "
+            f"within {dryrun.C128_TOL} dB, every c64 delta within {dryrun.C64_TOL} dB or a "
+            f"certified flip, and within {dryrun.CONTROL_K:g} x the control (api.overiva c64 on "
+            f"the bins reversed)")
     return par_launches
 
 
@@ -2222,6 +2354,7 @@ def main():
     timed("build", phase_build)
     kernel = timed("kernel", phase_kernel, dev, seed)
     fused = timed("fused kernel", phase_fused_kernel, dev, seed)
+    entry_launches = timed("entry", phase_entry, dev)
 
     rng = np.random.default_rng(seed)
     mix, images = make_mixture(rng, N, M, samples_for_frames(128))
@@ -2236,11 +2369,12 @@ def main():
         serve_oracles = {f: pool.submit(oracle_scores, *clip, NFFT, HOP)
                          for f, clip in serving.items()}
         serving[128] = (mix, images)
-        from overiva_tpu_torch.parallel.dryrun import SCALED_SEEDS, scaled_mixture
+        from overiva_tpu_torch.parallel.dryrun import SCALED_SCENES, SCALED_SEEDS, scaled_mixture
 
-        scenes = {s: pool.submit(scaled_mixture, s) for s in SCALED_SEEDS}
+        scenes = {(f, s): pool.submit(scaled_mixture, s, n_samples=n_samples)
+                  for f, n_samples in SCALED_SCENES.items() for s in SCALED_SEEDS}
         phases(dev, seed, timed, kernel, fused, mix, images, X64, oracle_jobs, serving,
-               serve_oracles, scenes, pool)
+               serve_oracles, scenes, pool, entry_launches)
     finally:
         pool.shutdown(cancel_futures=True)
     log(f"[done] chip_smoke.py wall {time.perf_counter() - t_start:.1f} s")
@@ -2252,9 +2386,10 @@ def main():
 
 
 def phases(dev, seed, timed, kernel, fused, mix, images, X64, oracle_jobs, serving,
-           serve_oracles, scenes, pool):
+           serve_oracles, scenes, pool, entry_launches):
     """Phases 4-12 and the kernels line (``kernel``, ``fused``: phases 3 and
-    3b's entries), on phase 5's mixture ``mix`` (its STFT ``X64``);
+    3b's entries; ``entry_launches``: phase 3c's), on phase 5's mixture
+    ``mix`` (its STFT ``X64``);
     ``oracle_jobs``: phase 8's oracle runs; ``serving`` and
     ``serve_oracles``: phase 11's clips and their oracle scores;
     ``scenes``: phase 12's simulated rooms, in the worker ``pool``."""
@@ -2288,6 +2423,7 @@ def phases(dev, seed, timed, kernel, fused, mix, images, X64, oracle_jobs, servi
         "replaces": "overiva_tpu/ops/pallas_wcov.py:103",
         "launches": main_path["launches"],
         **kernel,
+        "entry_launches": entry_launches[0],
         "ip2_launches": ip2_launches,
         "sparse_launches": sparse_launches,
         "joint_launches": joint_launches[0],
@@ -2301,6 +2437,7 @@ def phases(dev, seed, timed, kernel, fused, mix, images, X64, oracle_jobs, servi
         "replaces": "overiva_tpu/ops/pallas_epoch.py:248",
         "launches": fused_launches,
         **fused,
+        "entry_launches": entry_launches[1],
         "joint_launches": joint_launches[1],
         "stream_launches": stream_launches[1],
         "serve_launches": serve_launches[1],

@@ -58,7 +58,9 @@ phases of ``sparseauxiva`` with ``wcov="bf16pack"`` run the first once an
 epoch too.
 """
 
-__all__ = ["resolve_device"]
+from .version import __version__
+
+__all__ = ["__version__", "resolve_device"]
 
 _API = {
     name: "api"

@@ -1,6 +1,7 @@
 """BSS Eval source-separation metrics (SDR / SIR / SAR), NumPy: the port's
-copy of ``bss_eval_sources`` from ``overiva_tpu/metrics/bss_eval.py``, so
-that the port imports nothing of the JAX package.
+copy of ``bss_eval_sources`` and ``bss_eval_images`` from
+``overiva_tpu/metrics/bss_eval.py``, so that the port imports nothing of the
+JAX package.
 
 In-repo implementation of the ``bss_eval_sources`` criteria the reference
 pipeline gets from ``mir_eval.separation`` (SURVEY.md §5.5; the environment
@@ -52,7 +53,7 @@ import itertools
 import numpy as np
 from scipy.linalg import cho_factor, cho_solve, toeplitz
 
-__all__ = ["BssEvalReferences", "bss_eval_sources"]
+__all__ = ["BssEvalReferences", "bss_eval_sources", "bss_eval_images"]
 
 
 class BssEvalReferences:
@@ -215,3 +216,22 @@ def bss_eval_sources(
     """
     ev = BssEvalReferences(reference_sources, filter_length)
     return ev.evaluate(estimated_sources, compute_permutation)
+
+
+def bss_eval_images(reference_images: np.ndarray, estimated_images: np.ndarray, **kw):
+    """Convenience: evaluate multichannel source images by stacking channels.
+
+    reference_images, estimated_images: (nsrc, nsampl, nchan). Channels are
+    concatenated in time (the spatial-image variant of the criteria without
+    the ISR term), then scored with :func:`bss_eval_sources`.
+    """
+    r = np.asarray(reference_images)
+    e = np.asarray(estimated_images)
+    if r.ndim != 3 or e.shape != r.shape:
+        raise ValueError("expected matching (nsrc, nsampl, nchan) arrays")
+    nsrc = r.shape[0]
+    return bss_eval_sources(
+        r.transpose(0, 2, 1).reshape(nsrc, -1),
+        e.transpose(0, 2, 1).reshape(nsrc, -1),
+        **kw,
+    )

@@ -24,8 +24,9 @@ from __future__ import annotations
 import torch
 
 from ..parallel.collectives import psum
+from .tiss import augment_taps  # noqa: F401  (re-export for callers)
 
-__all__ = ["_ilrma_t_epoch", "ilrma_t_demix", "ilrma_t_iterations"]
+__all__ = ["_ilrma_t_epoch", "augment_taps", "ilrma_t_demix", "ilrma_t_iterations"]
 
 _EPS = 1e-15
 

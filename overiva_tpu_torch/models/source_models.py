@@ -15,7 +15,7 @@ EPS = 1e-15
 REL_EPS = 1e-3
 MODELS = ("laplace", "gauss")
 
-__all__ = ["EPS", "REL_EPS", "MODELS", "power", "activations_from_power"]
+__all__ = ["EPS", "REL_EPS", "MODELS", "power", "activations_from_power", "activations"]
 
 
 def power(Y, bin_mask=None):
@@ -42,3 +42,8 @@ def activations_from_power(pw, n_freq: int, model: str, eps: float = EPS):
     r = torch.clamp_min(r, eps)
     r = torch.maximum(r, REL_EPS * torch.amax(r, dim=0, keepdim=True))
     return r, 1.0 / r
+
+
+def activations(Y, model: str, eps: float = EPS):
+    """r, phi = 1/r from the current estimates Y (T, F, N)."""
+    return activations_from_power(power(Y), Y.shape[1], model, eps)

@@ -28,8 +28,9 @@ import torch
 from ..ops.covariance import weighted_covariance_all, weighted_covariance_tf
 from ..ops.linalg import clamp_pow2, gauss_solve
 from .overiva import demix, mixture_activations
+from .tiss import augment_taps  # noqa: F401  (re-export for callers)
 
-__all__ = ["_background_pieces", "_schur_pieces", "_tip_epoch", "tip_iterations"]
+__all__ = ["_background_pieces", "_schur_pieces", "_tip_epoch", "augment_taps", "tip_iterations"]
 
 
 def _weighted_cov(Xt, w, wcov: str, n_mix: int):

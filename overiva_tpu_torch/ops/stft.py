@@ -13,7 +13,12 @@ import torch
 
 from ..oracle.stft import hann, synthesis_window
 
-__all__ = ["analysis", "synthesis", "stft_pad"]
+__all__ = ["analysis", "synthesis", "stft_pad", "hann", "synthesis_window", "n_frames_of"]
+
+
+def n_frames_of(n_samples: int, nfft: int, hop: int) -> int:
+    """Frames of :func:`analysis` on ``n_samples`` samples."""
+    return (n_samples - nfft) // hop + 1
 
 
 def stft_pad(x, nfft: int, hop: int):

@@ -20,7 +20,7 @@ from .fastmnmf2 import fastmnmf, fastmnmf2, fastmnmf2_loglik
 from .five import five
 from .ilrma import ilrma
 from .ilrma_t import ilrma_t
-from .models import EPS, activations, align_eigvec_phase
+from .models import EPS, MODELS, activations, align_eigvec_phase
 from .ogive import ogive
 from .online_iss import online_iss_run
 from .overiva import overiva
@@ -35,6 +35,7 @@ from .wpe import delayed_taps, wpe
 
 __all__ = [
     "EPS",
+    "MODELS",
     "activations",
     "align_eigvec_phase",
     "analysis",

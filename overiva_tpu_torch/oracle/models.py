@@ -19,7 +19,7 @@ EPS = 1e-15  # activation floor (SURVEY.md §2.3, VERIFY-flagged exact value)
 # float64 as well).
 REL_EPS = 1e-3
 
-__all__ = ["EPS", "REL_EPS", "activations", "align_eigvec_phase"]
+__all__ = ["EPS", "REL_EPS", "activations", "align_eigvec_phase", "MODELS"]
 
 
 def align_eigvec_phase(E: np.ndarray) -> np.ndarray:
@@ -55,3 +55,6 @@ def activations(Y: np.ndarray, model: str, eps: float = EPS):
     r = np.maximum(r, eps)
     r = np.maximum(r, REL_EPS * r.max(axis=0, keepdims=True))
     return r, 1.0 / r
+
+
+MODELS = ("laplace", "gauss")

@@ -698,3 +698,39 @@ def test_fastmnmf_whitening_eigh_card_vs_cpu(cuda):
 
     assert rel(torch.complex128) < 1e-9
     assert rel(torch.complex64) > 1e3 * 2.0**-23
+
+
+def test_entry_on_card_matches_cpu(cuda):
+    """``entry()`` runs on the card by default; its W is the CPU's within
+    the complex64 tolerance chip_smoke.py holds it to."""
+    from overiva_tpu_torch.entry import entry
+
+    fn, args = entry()
+    assert all(a.device.type == "cuda" and a.dtype == torch.complex64 for a in args)
+    fn_cpu, args_cpu = entry(device="cpu")
+    W, W_cpu = fn(*args).cpu(), fn_cpu(*args_cpu)
+    assert float((W - W_cpu).abs().max() / W_cpu.abs().max()) <= 2e-6
+
+
+def test_fastmnmf_rotation_control_on_card(cuda):
+    """The rotation control of ``examples/fastmnmf_stages.py`` on the card,
+    complex128, on 16 bins of parity_check's seed-7 scene: from each
+    rotated start the card lands on the CPU's images (which
+    tests/test_torch_fastmnmf_rotation.py holds to the JAX package's), and
+    every rotation moves them."""
+    from overiva_tpu_torch.examples import fastmnmf_stages as stages
+
+    _, _, X64 = stages.parity_scene(7)
+    X = torch.from_numpy(np.ascontiguousarray(X64[:, 100:116]))
+    for tie_g in (True, False):
+        Xu, scale, starts, _ = stages.rotation_starts(X, tie_g)
+        ref = None
+        for label, st in starts.items():
+            Yc = stages.run_from(Xu, scale, st, torch.device("cpu"), 4)
+            Yd = stages.run_from(Xu, scale, st, cuda, 4)
+            norm = np.abs(Yc).max()
+            assert np.abs(Yd - Yc).max() <= 1e-9 * norm, (tie_g, label)
+            if ref is None:
+                ref = Yc
+            elif label.startswith("rotation"):
+                assert np.abs(Yc - ref).max() > 1e-3 * norm, (tie_g, label)

@@ -42,6 +42,8 @@ def test_package_never_imports_jax():
         "from overiva_tpu_torch import registry\n"
         "from overiva_tpu_torch.parallel import collectives, dryrun, launch, mesh, sharded\n"
         "from overiva_tpu_torch.examples import fastmnmf_stages\n"
+        "from overiva_tpu_torch import entry, version\n"
+        "assert overiva_tpu_torch.__version__ == version.__version__\n"
         "assert len(sharded.__all__) == 17\n"
         "from overiva_tpu_torch.utils import convert, threefry\n"
         "from overiva_tpu_torch import metrics, oracle\n"

@@ -170,9 +170,29 @@ def test_scaled_verdict(case, d64, d128, match):
     if match is None:
         lines, flips = dryrun.scaled_verdict(d64, d128, CONTROL)
         assert flips == [12, 13] and "NOT met (2" in lines[-1]
+        assert "control 0.6000/1.0700, ratio 3.36" in lines[2]  # 3.6 / 1.07
     else:
         with pytest.raises(AssertionError, match=match):
             dryrun.scaled_verdict(d64, d128, CONTROL)
+
+
+@pytest.mark.parametrize("d, c, want", [
+    ((0.1, 0.3), (0.05, 0.3), 2.0), ((0.0, 0.2), (0.0, 0.1), 2.0),
+    ((0.01, 0.0), (0.0, 0.0), np.inf), ((0.0, 0.0), (0.0, 0.0), 0.0),
+])
+def test_control_ratio(d, c, want):
+    assert dryrun.control_ratio(d, c) == want
+
+
+def test_scaled_scenes_have_their_frames():
+    """Each scaled scene's sample count gives its frame count at nfft 4096."""
+    from overiva_tpu_torch import oracle
+    from overiva_tpu_torch.ops.stft import n_frames_of
+
+    for frames, n_samples in dryrun.SCALED_SCENES.items():
+        padded = oracle.stft_pad(np.zeros((n_samples, 1)), 4096, 2048).shape[0]
+        assert n_frames_of(padded, 4096, 2048) == frames
+    assert not set(dryrun.HELD_OUT_SEEDS) & set(dryrun.SCALED_SEEDS)
 
 
 @pytest.mark.parametrize("fault, match", [("output", "disagree"), ("count", "collectives")])
