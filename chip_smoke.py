@@ -134,6 +134,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    printed. Each rank's launches of both kernels over the phase are
    counted and gated (``wcov_packed`` 90 on each gloo rank, 0 on the NCCL
    rank, ``update_rows`` 0 on all).
+13. sweep: the Monte-Carlo sweep twin (``python -m
+   overiva_tpu_torch.examples.mbss_sim``) on ``bench/waspaa_demo_config.json``
+   (nfft 2048, 4 s rooms, M in {2, 3, 5, 8}, N in {1, 2, 3}, nine algorithms)
+   plus ``overiva@bf16pack`` and ``overiva@bf16`` arms (20 it, init_eig), at
+   batch 1, on the first of the config's three seeds (11 instances), resuming
+   past the other two's records copied from the TPU snapshot
+   ``data/waspaa_demo/``: no error entry, every score finite, the copied
+   records untouched, ``wcov_packed`` once an epoch of each bf16pack run
+   (phase 5's count) and ``update_rows`` never, the bf16pack arm within 0.3
+   dB mean SIR of f32 ``overiva`` or of the plain bf16 arm in each cell;
+   printed: the paired dSDR / dSIR per (algo, cell) against the snapshot,
+   the wall per instance and the card's busy share over one instance (M=8,
+   N=3); then ``tests/test_torch_sweep.py``'s small config at
+   batch 3 against batch 1 on the card, within 2e-4 dB.
 
 Each phase ends with a ``[time]`` line, its wall in seconds.
 
@@ -2331,6 +2345,181 @@ def phase_parallel(dev, mix, images, main, serving, scene_futures, pool):
     return par_launches
 
 
+# phase 13: the Monte-Carlo sweep twin on the paper's demo config, plus a bf16pack arm
+# (the one sweep arm that reaches a kernel: the batch forms take no wcov, so batch=1)
+# and the plain bf16 arm it is also held to.
+# One seed of the TPU snapshot's three runs; the other two are copied in first, so
+# the sweep resumes past them.
+SWEEP_CONFIG = "bench/waspaa_demo_config.json"
+SWEEP_SNAPSHOT = "data/waspaa_demo"
+SWEEP_SEED = 981238343  # the first seed that SeedSequence(777) draws
+SWEEP_BF16 = {"n_iter": 20, "init_eig": True, "wcov": "bf16pack"}
+SWEEP_SERIAL_TOL = 2e-4  # batched vs serial, dB (tests/test_sweep_batch.py)
+SWEEP_BF16_TOL = 0.3  # bf16pack vs f32 (or bf16) mean SIR, dB (tests/test_bf16.py)
+SWEEP_KEYS = ("sdr", "sir", "sdr_improvement", "sir_improvement")
+
+
+def sweep_small_cfg(defaults):
+    """tests/test_torch_sweep.py's small config (3 seeds, 2 cells)."""
+    cfg = {**defaults, "repeats": 3, "duration": 1.5, "nfft": 256, "n_mics": [2],
+           "n_srcs": [1, 2], "seed": 777}
+    cfg["algos"] = {"overiva": {"n_iter": 6}, "ilrma": {"n_iter": 4, "n_components": 2},
+                    "five": {"n_iter": 4},
+                    "overiva@c128": {"n_iter": 6, "dtype": "complex128"}}
+    return cfg
+
+
+def quiet_sweep(sweep, *args, **kw):
+    """``sweep`` with its progress lines logged under [sweep]."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        sweep(*args, **kw)
+    for line in buf.getvalue().splitlines():
+        log(f"[sweep] {line}")
+
+
+def sweep_records(out):
+    return {f.name: json.loads(f.read_text()) for f in sorted(out.glob("s*.json"))}
+
+
+def phase_sweep(dev, main):
+    """The sweep twin (``overiva_tpu_torch/examples/mbss_sim.py``): the demo config
+    (``SWEEP_CONFIG``) with bf16pack and bf16 arms at batch=1 on one seed, resuming
+    past the snapshot's other two; the small config batched (3) against serial (1);
+    gates: no error entry, every score finite, the copied records untouched,
+    ``wcov_packed`` once an epoch of each bf16pack run (the epoch count read off phase
+    5), ``update_rows`` never, the bf16pack arm within ``SWEEP_BF16_TOL`` mean SIR of
+    the f32 ``overiva`` column or of the plain bf16 arm (no kernel) in each cell;
+    printed: the paired deltas against the TPU snapshot, the wall per instance, the
+    card's busy share over one instance. Returns (wcov_packed, update_rows) launches
+    of the demo sweep."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from overiva_tpu_torch.examples import mbss_sim
+    from overiva_tpu_torch.ops.update_rows import update_rows
+    from overiva_tpu_torch.ops.wcov_packed import wcov_packed
+
+    repo = Path(__file__).resolve().parent
+    cfg = {**mbss_sim.DEFAULT_CONFIG, **json.loads((repo / SWEEP_CONFIG).read_text())}
+    cfg["algos"] = {**cfg["algos"], "overiva@bf16pack": SWEEP_BF16,
+                    "overiva@bf16": {**SWEEP_BF16, "wcov": "bf16"}}
+    snapshot = repo / SWEEP_SNAPSHOT
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "demo"
+        out.mkdir()
+        for f in snapshot.glob("s*.json"):
+            if not f.name.startswith(f"s{SWEEP_SEED}_"):
+                shutil.copy(f, out)
+        copied = {f.name: f.stat().st_mtime_ns for f in out.glob("s*.json")}
+
+        # --- the demo config, once, with the kernels' launch counts
+        wcov_packed.launches = 0
+        update_rows.launches = 0
+        t0 = time.perf_counter()
+        quiet_sweep(mbss_sim.sweep, cfg, out, batch=1, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = (wcov_packed.launches, update_rows.launches)
+        recs = sweep_records(out)
+        new = {n: r for n, r in recs.items() if n not in copied}
+        if ({n: recs[n] for n in copied}
+                != {n: json.loads((snapshot / n).read_text()) for n in copied}
+                or any(f.stat().st_mtime_ns != copied[f.name]
+                       for f in out.glob("s*.json") if f.name in copied)):
+            raise AssertionError("the sweep rewrote a record it should have skipped")
+        if len(new) != 11 or any(not n.startswith(f"s{SWEEP_SEED}_") for n in new):
+            raise AssertionError(f"the sweep ran {sorted(new)}, want the 11 of seed {SWEEP_SEED}")
+        bad = [(n, a) for n, r in new.items() for a, res in r["results"].items()
+               if "error" in res or not all(np.isfinite(res[k]).all() for k in SWEEP_KEYS
+                                            if k in res)]
+        n_bf16 = sum("overiva@bf16pack" in r["results"] for r in new.values())
+        want = main["launches"] // 30 * SWEEP_BF16["n_iter"] * n_bf16  # phase 5: 30 it
+        log(f"[sweep] demo config ({SWEEP_CONFIG} + the bf16pack and bf16 arms, batch 1): "
+            f"{len(new)} instances of seed {SWEEP_SEED} run, {len(copied)} resumed from "
+            f"{SWEEP_SNAPSHOT}; "
+            f"error or non-finite entries {bad} (want none); launches of wcov_packed "
+            f"{launches[0]} (want {want}: {main['launches']} over phase 5's 30 epochs x "
+            f"{SWEEP_BF16['n_iter']} x {n_bf16} bf16pack runs), of update_rows {launches[1]} "
+            f"(want 0)")
+        if bad:
+            raise AssertionError("the demo sweep recorded errors or non-finite scores")
+        if launches != (want, 0):
+            raise AssertionError("the sweep's kernel launches are off")
+
+        # --- bf16pack against f32, paired, per cell (mean SIR; N=1 cells have none):
+        # within SWEEP_BF16_TOL of f32, or of the plain bf16 tier (no kernel) in the same
+        # run, which on a poorly separated room loses more than that to f32 itself, in
+        # the JAX package too (phase 7's rule for AuxIVA-IP2)
+        rows = [r for r in mbss_sim._load_rows(out) if r["key"].startswith(f"s{SWEEP_SEED}_")]
+        by = {(r["algo"], r["n_mics"], r["n_src"]): r for r in rows}
+        cells = sorted((m, n) for (a, m, n) in by if a == "overiva")
+
+        def d(arm, ref, m, n, key="sir"):
+            return by[arm, m, n][key] - by[ref, m, n][key]
+
+        d_pk = {c: (d("overiva@bf16pack", "overiva", *c), d("overiva@bf16", "overiva", *c),
+                    d("overiva@bf16pack", "overiva@bf16", *c)) for c in cells if c[1] > 1}
+        log("[sweep] mean SIR (dB) per (M, N), bf16pack - f32 / bf16 - f32 / bf16pack - bf16: "
+            + ", ".join(f"{c} {a:+.4f} / {b:+.4f} / {e:+.4f}" for c, (a, b, e) in d_pk.items())
+            + f" (tol {SWEEP_BF16_TOL} on the first or the last); N=1 cells, SDR bf16pack - "
+            "f32 (printed): " + ", ".join(f"{c} {d('overiva@bf16pack', 'overiva', *c, 'sdr'):+.4f}"
+                                         for c in cells if c[1] == 1))
+        if not d_pk or any(min(abs(a), abs(e)) > SWEEP_BF16_TOL for a, _, e in d_pk.values()):
+            raise AssertionError("the bf16pack arm is off both the f32 and the bf16 columns")
+
+        # --- printed: the paired deltas against the TPU snapshot
+        table = mbss_sim.paired_table(mbss_sim._load_rows(snapshot), rows)
+        log(f"[sweep] paired deltas vs {SWEEP_SNAPSHOT} (a TPU v5e snapshot of 2026-08-17, older "
+            "than the room simulation and bss_eval of today: the JAX package on the CPU reads "
+            f"up to ~1 dB SDR / ~2 dB SIR from it), seed {SWEEP_SEED}, dSDR / dSIR dB per "
+            "(M, N), printed:")
+        for algo in sorted({a for a, _, _ in table}):
+            cells = [(m, n, v) for (a, m, n), v in table.items() if a == algo]
+            log(f"[sweep]   {algo}: " + ", ".join(
+                f"({m},{n}) {v[2]:+.2f} / {'' if np.isnan(v[0]) else f'{v[0]:+.2f}'}"
+                for m, n, v in cells))
+        walls = [r["wall"] for r in new.values()]
+        log(f"[sweep] wall {wall:.1f} s for {len(new)} instances: {wall / len(new):.2f} s an "
+            f"instance, {len(new) / wall:.3f} instances/s (per-instance walls "
+            f"{min(walls):.2f}-{max(walls):.2f} s), {card_and_limit()}")
+
+        # --- printed: the card's busy share over one instance (the largest cell)
+        g = (SWEEP_SEED, 8, 3, 0.25, 25.0)
+        room = mbss_sim.simulate_instance(cfg, *g)
+        ops, busy_ms = device_profile(
+            lambda: mbss_sim.one_instance(cfg, *g, simulated=room, device=dev))
+        inst_wall = recs[f"{mbss_sim.instance_key(*g)}.json"]["wall"]
+        log(f"[sweep] one instance (M=8, N=3, its 6 arms): {ops} device ops, busy "
+            f"{busy_ms:.1f} ms of its {inst_wall * 1e3:.1f} ms sweep wall = "
+            f"{100 * busy_ms / (inst_wall * 1e3):.1f} %")
+
+        # --- the small config, batched against serial, on the card
+        small = sweep_small_cfg(mbss_sim.DEFAULT_CONFIG)
+        for b in (1, 3):
+            quiet_sweep(mbss_sim.sweep, small, Path(tmp) / f"small{b}", batch=b, device=dev)
+        serial, batched = (sweep_records(Path(tmp) / f"small{b}") for b in (1, 3))
+        worst, errors = 0.0, []
+        for name, rec in serial.items():
+            for algo, res in rec["results"].items():
+                bres = batched[name]["results"][algo]
+                if "error" in res or "error" in bres:
+                    errors.append((name, algo))
+                    continue
+                for k in SWEEP_KEYS:
+                    if res.get(k):
+                        worst = max(worst, float(np.abs(np.subtract(res[k], bres[k])).max()))
+        log(f"[sweep] small config on the card, batch 3 vs batch 1 ({len(serial)} instances): "
+            f"max |d| {worst:.2e} dB (tol {SWEEP_SERIAL_TOL}), errors {errors} (want none)")
+        if set(serial) != set(batched) or len(serial) != 6 or errors or worst > SWEEP_SERIAL_TOL:
+            raise AssertionError("the batched sweep is off the serial one")
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2387,7 +2576,7 @@ def main():
 
 def phases(dev, seed, timed, kernel, fused, mix, images, X64, oracle_jobs, serving,
            serve_oracles, scenes, pool, entry_launches):
-    """Phases 4-12 and the kernels line (``kernel``, ``fused``: phases 3 and
+    """Phases 4-13 and the kernels line (``kernel``, ``fused``: phases 3 and
     3b's entries; ``entry_launches``: phase 3c's), on phase 5's mixture
     ``mix`` (its STFT ``X64``);
     ``oracle_jobs``: phase 8's oracle runs; ``serving`` and
@@ -2409,6 +2598,7 @@ def phases(dev, seed, timed, kernel, fused, mix, images, X64, oracle_jobs, servi
                            requests_ms)
     par_launches = timed("parallel", phase_parallel, dev, mix, images, main_path, serving,
                          scenes, pool)
+    sweep_launches = timed("sweep", phase_sweep, dev, main_path)
 
     loaded = sorted(
         m for m in sys.modules
@@ -2430,6 +2620,7 @@ def phases(dev, seed, timed, kernel, fused, mix, images, X64, oracle_jobs, servi
         "stream_launches": stream_launches[0],
         "serve_launches": serve_launches[0],
         "parallel_launches": par_launches[0],
+        "sweep_launches": sweep_launches[0],
     }, {
         "name": "update_rows",
         "route": "cuda",
@@ -2442,6 +2633,7 @@ def phases(dev, seed, timed, kernel, fused, mix, images, X64, oracle_jobs, servi
         "stream_launches": stream_launches[1],
         "serve_launches": serve_launches[1],
         "parallel_launches": par_launches[1],
+        "sweep_launches": sweep_launches[1],
     }]}))
 
 

@@ -5,7 +5,8 @@ and joint families, the streaming classes and the clip-serving
 ``Separator`` on the card against the same on the CPU (the streaming
 blocks and a Separator clip also without a host sync), and the parallel
 tier: gloo ranks sharing the card, one NCCL rank, ``Separator(mesh=...)``
-launch counts, and the FastMNMF whitening start's card-vs-CPU spread.
+launch counts, the FastMNMF whitening start's card-vs-CPU spread, and the
+Monte-Carlo sweep twin batched against serial.
 
 Every test here needs a card and skips without one. This file imports no
 JAX, so it also runs where JAX is not installed:
@@ -734,3 +735,31 @@ def test_fastmnmf_rotation_control_on_card(cuda):
                 ref = Yc
             elif label.startswith("rotation"):
                 assert np.abs(Yc - ref).max() > 1e-3 * norm, (tie_g, label)
+
+
+def test_sweep_batched_matches_serial_on_card(cuda, tmp_path):
+    """The sweep twin on the card: tests/test_torch_sweep.py's small config
+    at batch 2 (a padded partial chunk) against batch 1, every score within
+    tests/test_sweep_batch.py's 2e-4 dB, no error entry."""
+    import json
+
+    from overiva_tpu_torch.examples import mbss_sim
+
+    cfg = {**mbss_sim.DEFAULT_CONFIG, "repeats": 3, "duration": 1.5, "nfft": 256,
+           "n_mics": [2], "n_srcs": [1, 2], "seed": 777}
+    cfg["algos"] = {"overiva": {"n_iter": 6}, "ilrma": {"n_iter": 4, "n_components": 2},
+                    "five": {"n_iter": 4}, "overiva@c128": {"n_iter": 6, "dtype": "complex128"}}
+    runs = {}
+    for b in (1, 2):
+        mbss_sim.sweep(cfg, tmp_path / str(b), batch=b)
+        runs[b] = {f.name: json.loads(f.read_text())
+                   for f in sorted((tmp_path / str(b)).glob("s*.json"))}
+    assert set(runs[1]) == set(runs[2]) and len(runs[1]) == 6
+    for name, rec in runs[1].items():
+        for algo, res in rec["results"].items():
+            bres = runs[2][name]["results"][algo]
+            assert "error" not in res and "error" not in bres, (algo, res, bres)
+            for key in ("sdr", "sir", "sdr_improvement", "sir_improvement"):
+                if key in res:
+                    np.testing.assert_allclose(res[key], bres[key], rtol=0, atol=2e-4,
+                                               err_msg=f"{name}/{algo}/{key}")
