@@ -148,6 +148,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the wall per instance and the card's busy share over one instance (M=8,
    N=3); then ``tests/test_torch_sweep.py``'s small config at
    batch 3 against batch 1 on the card, within 2e-4 dB.
+14. bench: the bench twin (``python -m overiva_tpu_torch.examples.bench``,
+   the port's ``bench.py``) in process: ``bench.run`` at its full shape
+   with one timed run a row, its JSON on a ``[bench]`` line; every one of
+   ``bench.py``'s 35 keys present and finite, no ``bench_errors`` and no
+   ``bench_truncated_at``, ``wcov_packed`` launched 2 x (1 + 1) x 30 times
+   (the two bf16pack rows, warm-up and timed run) and ``update_rows``
+   never.
 
 Each phase ends with a ``[time]`` line, its wall in seconds.
 
@@ -2520,6 +2527,46 @@ def phase_sweep(dev, main):
     return launches
 
 
+# phase 14: the bench twin, every row at full width, one timed run each after its
+# warm-up (the CLI keeps bench.py's repeats)
+BENCH_REPEATS = 1
+
+
+def phase_bench(dev):
+    """The bench twin (``overiva_tpu_torch/examples/bench.py``) at its full shape
+    with ``BENCH_REPEATS`` timed runs a row; its JSON printed; gates: every key of
+    ``bench.EXTRA_KEYS`` present and finite, no row error, no truncation,
+    ``wcov_packed`` launched by the two bf16pack rows alone (warm-up and timed
+    runs, 30 epochs each) and ``update_rows`` never. Returns (wcov_packed,
+    update_rows) launches."""
+    from overiva_tpu_torch.examples import bench
+    from overiva_tpu_torch.ops.update_rows import update_rows
+    from overiva_tpu_torch.ops.wcov_packed import wcov_packed
+
+    wcov_packed.launches = 0
+    update_rows.launches = 0
+    out = bench.run(dev, bench.FULL, repeats=BENCH_REPEATS)
+    torch.cuda.synchronize()
+    launches = (wcov_packed.launches, update_rows.launches)
+    log(f"[bench] {json.dumps(out)}")
+    extra = out["extra"]
+    missing = [k for k in bench.EXTRA_KEYS if k not in extra]
+    bad = [k for k in bench.EXTRA_KEYS if k in extra and not np.isfinite(extra[k])]
+    want = 2 * (1 + BENCH_REPEATS) * bench.FULL.n_iter
+    log(f"[bench] headline {out['value']} it/s (vs_baseline {out['vs_baseline']}) on "
+        f"{extra['device']}; missing keys {missing}, non-finite {bad}, bench_errors "
+        f"{extra.get('bench_errors')}, bench_truncated_at {extra.get('bench_truncated_at')} "
+        f"(want none); launches of wcov_packed {launches[0]} (want {want}: 2 bf16pack rows x "
+        f"{1 + BENCH_REPEATS} runs x {bench.FULL.n_iter} epochs), of update_rows "
+        f"{launches[1]} (want 0)")
+    if (missing or bad or not np.isfinite(out["value"]) or "bench_errors" in extra
+            or "bench_truncated_at" in extra):
+        raise AssertionError("the bench twin's line is incomplete")
+    if launches != (want, 0):
+        raise AssertionError("the bench twin's kernel launches are off")
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2576,7 +2623,7 @@ def main():
 
 def phases(dev, seed, timed, kernel, fused, mix, images, X64, oracle_jobs, serving,
            serve_oracles, scenes, pool, entry_launches):
-    """Phases 4-13 and the kernels line (``kernel``, ``fused``: phases 3 and
+    """Phases 4-14 and the kernels line (``kernel``, ``fused``: phases 3 and
     3b's entries; ``entry_launches``: phase 3c's), on phase 5's mixture
     ``mix`` (its STFT ``X64``);
     ``oracle_jobs``: phase 8's oracle runs; ``serving`` and
@@ -2599,6 +2646,7 @@ def phases(dev, seed, timed, kernel, fused, mix, images, X64, oracle_jobs, servi
     par_launches = timed("parallel", phase_parallel, dev, mix, images, main_path, serving,
                          scenes, pool)
     sweep_launches = timed("sweep", phase_sweep, dev, main_path)
+    bench_launches = timed("bench", phase_bench, dev)
 
     loaded = sorted(
         m for m in sys.modules
@@ -2621,6 +2669,7 @@ def phases(dev, seed, timed, kernel, fused, mix, images, X64, oracle_jobs, servi
         "serve_launches": serve_launches[0],
         "parallel_launches": par_launches[0],
         "sweep_launches": sweep_launches[0],
+        "bench_launches": bench_launches[0],
     }, {
         "name": "update_rows",
         "route": "cuda",
@@ -2634,6 +2683,7 @@ def phases(dev, seed, timed, kernel, fused, mix, images, X64, oracle_jobs, servi
         "serve_launches": serve_launches[1],
         "parallel_launches": par_launches[1],
         "sweep_launches": sweep_launches[1],
+        "bench_launches": bench_launches[1],
     }]}))
 
 

@@ -5,8 +5,8 @@ and joint families, the streaming classes and the clip-serving
 ``Separator`` on the card against the same on the CPU (the streaming
 blocks and a Separator clip also without a host sync), and the parallel
 tier: gloo ranks sharing the card, one NCCL rank, ``Separator(mesh=...)``
-launch counts, the FastMNMF whitening start's card-vs-CPU spread, and the
-Monte-Carlo sweep twin batched against serial.
+launch counts, the FastMNMF whitening start's card-vs-CPU spread, the
+Monte-Carlo sweep twin batched against serial, and the bench twin's rows.
 
 Every test here needs a card and skips without one. This file imports no
 JAX, so it also runs where JAX is not installed:
@@ -763,3 +763,17 @@ def test_sweep_batched_matches_serial_on_card(cuda, tmp_path):
                 if key in res:
                     np.testing.assert_allclose(res[key], bres[key], rtol=0, atol=2e-4,
                                                err_msg=f"{name}/{algo}/{key}")
+
+
+def test_bench_twin_on_card(cuda):
+    """The bench twin's rows at its small shape on the card: every key,
+    every value finite, no row error, and ``wcov_packed`` launched by the
+    two bf16pack rows alone, (1 warm-up + 1 timed) x n_iter each."""
+    from overiva_tpu_torch.examples import bench
+
+    twp.wcov_packed.launches = tur.update_rows.launches = 0
+    extra = bench.run(cuda, bench.TINY, repeats=1)["extra"]
+    assert set(extra) == set(bench.EXTRA_KEYS) | {"device"}, extra.get("bench_errors")
+    assert all(np.isfinite(extra[k]) for k in bench.EXTRA_KEYS)
+    assert twp.wcov_packed.launches == 2 * 2 * bench.TINY.n_iter
+    assert tur.update_rows.launches == 0

@@ -398,7 +398,8 @@ def test_port_never_imports_the_jax_package():
                 "examples/streaming.py", "examples/oneshot.py", "examples/serving.py",
                 "examples/parity_check.py", "utils/audio.py", "utils/profiling.py",
                 "oracle/auxiva_pca.py", "parallel/mesh.py", "parallel/sharded.py",
-                "parallel/launch.py", "parallel/dryrun.py", "parallel/collectives.py"):
+                "parallel/launch.py", "parallel/dryrun.py", "parallel/collectives.py",
+                "examples/mbss_sim.py", "examples/bench.py"):
         assert REPO / "overiva_tpu_torch" / rel in files
     offenders = {}
     for path in files:
