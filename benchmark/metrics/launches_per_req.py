@@ -1,0 +1,1 @@
+from benchmark.readers import launches_per_item as read  # noqa: F401

@@ -1,0 +1,1 @@
+from benchmark.readers import pad_frac as read  # noqa: F401
