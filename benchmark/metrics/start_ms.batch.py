@@ -1,0 +1,1 @@
+from benchmark.spans import start_ms as read  # noqa: F401

@@ -67,6 +67,7 @@ from .oracle.sparseauxiva import _resolve_n_bins
 from .utils import threefry
 from .utils.checkpoint import load_state, save_state
 from .utils.convert import as_tensor, state_to_numpy, stream_state_to_torch, to_torch_dtype
+from .utils.profiling import span
 
 __all__ = [
     "OnlineAuxIVAISS",
@@ -153,7 +154,8 @@ def _finish(Y, X, scaled, numpy_in, out_dtype=None):
     """Outputs Y, projection-back-scaled against mic 0 of X when
     ``scaled``, then cast to ``out_dtype``; NumPy for a NumPy input."""
     if scaled:
-        Y = _proj.apply_projection_back(Y, X[:, :, 0])
+        with span("api.proj_back", bins=Y.shape[1]):
+            Y = _proj.apply_projection_back(Y, X[:, :, 0])
     return _output(Y if out_dtype is None else Y.to(out_dtype), numpy_in)
 
 
@@ -592,7 +594,8 @@ def _batch_out(Y, X, n_mix, proj_back, numpy_in):
     """Folded outputs (T, B*F, K) -> (B, T, F, K), projection-back-scaled
     against each mixture's mic 0 when ``proj_back``."""
     if proj_back:
-        Y = _proj.apply_projection_back(Y, X[:, :, 0])
+        with span("api.proj_back", bins=Y.shape[1]):
+            Y = _proj.apply_projection_back(Y, X[:, :, 0])
     return _output(_core.unfold_mixtures(Y, n_mix), numpy_in)
 
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from .overiva import demix, mixture_activations
 
 __all__ = ["auxiva_iss_iterations", "iss_phi", "iss_steps"]
@@ -79,6 +80,7 @@ def auxiva_iss_iterations(X, W, n_iter: int, model: str, n_src=None, Y=None,
     take ``Y[:, :, :n_src]``."""
     if Y is None:
         Y = demix(X, W)
-    for _ in range(n_iter):
-        W, Y = _iss_epoch(W, Y, model, n_src, n_mix)
+    for i in range(n_iter):
+        with span("family.epoch", index=i, bins=X.shape[1]):
+            W, Y = _iss_epoch(W, Y, model, n_src, n_mix)
     return W, Y

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from .auxiva_iss import auxiva_iss_iterations
 from .overiva import demix, overiva_iterations, prepare
 from .overiva_ip2 import overiva_ip2_iterations
@@ -68,11 +69,14 @@ def run_family(X, n_src: int, n_iter: int, model: str, algo: str = "ip",
             return auxiva_iss_iterations(X, state[0], steps, model, n_src=N, Y=state[1],
                                          n_mix=n_mix)
 
-        W = _iss_start(X, N, W0)
-        W, Y = chunked(run, (W, demix(X, W)), n_iter, callback, callback_every,
-                       lambda s: s[1][:, :, :N])
+        with span("family.start", mats=0):
+            W = _iss_start(X, N, W0)
+            state = (W, demix(X, W))
+        W, Y = chunked(run, state, n_iter, callback, callback_every, lambda s: s[1][:, :, :N])
         return Y[:, :, :N], W
-    W, Cx = prepare(X, N, bool(init_eig), W0)
+    # mats: the matrices of the batched eigh of the eigenvector start
+    with span("family.start", mats=X.shape[1] if init_eig and W0 is None else 0):
+        W, Cx = prepare(X, N, bool(init_eig), W0)
     if algo == "ip2":
         def run(W, steps):
             return overiva_ip2_iterations(X, W, Cx, N, steps, model, wcov, n_mix)

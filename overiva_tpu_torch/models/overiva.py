@@ -20,6 +20,7 @@ from ..ops.linalg import align_eigvec_phase, clamp_pow2, eigh, gauss_solve, mat_
 from ..ops.update_rows import ip_rows, update_rows
 from ..ops.wcov_packed import pack_planes, wcov_packed
 from ..parallel.collectives import psum
+from ..utils.profiling import span
 from .source_models import activations_from_power, power
 
 __all__ = [
@@ -157,8 +158,9 @@ def overiva_iterations(X, W_hat, Cx, n_src: int, n_iter: int, model: str,
     same every epoch) and each epoch's weighted covariances run the
     packed kernel on them."""
     xpack = pack_planes(X) if wcov == "bf16pack" else None
-    for _ in range(n_iter):
-        W_hat = _epoch(X, W_hat, Cx, n_src, model, chunk_frames, wcov, xpack, n_mix)
+    for i in range(n_iter):
+        with span("family.epoch", index=i, bins=X.shape[1]):
+            W_hat = _epoch(X, W_hat, Cx, n_src, model, chunk_frames, wcov, xpack, n_mix)
     return W_hat
 
 

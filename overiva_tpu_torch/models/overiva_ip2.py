@@ -20,6 +20,7 @@ import torch
 
 from ..ops.linalg import clamp_pow2, gauss_solve, mat_h, quad_form
 from ..ops.wcov_packed import pack_planes
+from ..utils.profiling import span
 from .overiva import _update_J, epoch_covariances
 
 __all__ = ["overiva_ip2_iterations"]
@@ -115,6 +116,7 @@ def overiva_ip2_iterations(X, W, Cx, n_src: int, n_iter: int, model: str,
     package packs them inside every epoch; the numbers are the same) and
     runs the packed kernel once an epoch for all sources."""
     xpack = pack_planes(X) if wcov == "bf16pack" else None
-    for _ in range(n_iter):
-        W = _ip2_epoch(X, W, Cx, n_src, model, wcov, xpack, n_mix)
+    for i in range(n_iter):
+        with span("family.epoch", index=i, bins=X.shape[1]):
+            W = _ip2_epoch(X, W, Cx, n_src, model, wcov, xpack, n_mix)
     return W

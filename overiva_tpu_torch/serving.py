@@ -79,6 +79,7 @@ from .parallel.mesh import AXIS_MIX, axis_size
 from .registry import get_algorithm
 from .utils.checkpoint import load_state, save_state
 from .utils.convert import as_tensor, state_to_numpy, to_torch_dtype
+from .utils.profiling import span
 
 __all__ = ["SERVABLE", "Separator", "StreamingSeparator", "bucket_frames"]
 
@@ -192,7 +193,8 @@ def _spectral(X, n_src, n_iter, model, branch, taps, delay, warm_iter, wcov, n_m
         raise ValueError(f"unknown fused branch {branch!r}")
     # projection back against the masked reference channel: this is what
     # cancels the bucket-dependent covariance scale
-    return apply_projection_back(Y, X[:, :, 0])
+    with span("api.proj_back", bins=Y.shape[1]):
+        return apply_projection_back(Y, X[:, :, 0])
 
 
 def _pcm16(y):
@@ -211,28 +213,48 @@ def _masked_clip(x, t_pad, nfft, hop, cfg, win, win_s, pcm_out=False):
     of ``x.astype(rd) / 32768``. ``t_pad``: the padded frame count, a
     Python int (or 0-d tensor) for one clip, a (B,) tensor for a group.
     """
-    if not x.is_floating_point():
-        x = x.to(win.dtype) * (1.0 / 32768.0)
-    X = _stft.analysis(x, nfft, hop, win)
-    # the last prepended frames straddle the padding/real boundary (hop
-    # overlap): zero every padded frame in the STFT domain, so that padded
-    # frames are exactly zero, as the invariance argument needs
-    frames = torch.arange(X.shape[-3], device=X.device)
-    zero = torch.zeros((), dtype=X.dtype, device=X.device)
+    B = x.shape[0] if x.ndim == 3 else 1
+    n_frames = B * _n_frames(x.shape[-2], nfft, hop)
+    with span("serve.analysis", frames=n_frames, bins=B * (nfft // 2 + 1)):
+        if not x.is_floating_point():
+            x = x.to(win.dtype) * (1.0 / 32768.0)
+        X = _stft.analysis(x, nfft, hop, win)
+        # the last prepended frames straddle the padding/real boundary (hop
+        # overlap): zero every padded frame in the STFT domain, so that
+        # padded frames are exactly zero, as the invariance argument needs
+        frames = torch.arange(X.shape[-3], device=X.device)
+        zero = torch.zeros((), dtype=X.dtype, device=X.device)
+        keep = frames[None, :] >= t_pad[:, None] if X.ndim == 4 else frames >= t_pad
+        X = torch.where(keep[..., None, None], X, zero)
     if X.ndim == 4:
-        B = X.shape[0]
-        keep = frames[None, :] >= t_pad[:, None]
-        X = torch.where(keep[:, :, None, None], X, zero)
         Y = unfold_mixtures(_spectral(fold_mixtures(X), n_mix=B, **cfg), B)
     else:
-        X = torch.where((frames >= t_pad)[:, None, None], X, zero)
         Y = _spectral(X, **cfg)
-    y = _stft.synthesis(Y, nfft, hop, win_s)
-    return _pcm16(y) if pcm_out else y
+    with span("serve.synthesis", frames=n_frames):
+        y = _stft.synthesis(Y, nfft, hop, win_s)
+        return _pcm16(y) if pcm_out else y
 
 
 def _is_int16(x):
     return x.dtype == (torch.int16 if isinstance(x, torch.Tensor) else np.int16)
+
+
+def _n_frames(n_samples: int, nfft: int, hop: int) -> int:
+    """STFT frames of ``n_samples`` samples, as ``ops/stft.py::analysis``
+    cuts them (no padding)."""
+    return (n_samples - nfft) // hop + 1
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def _host_nbytes(x) -> int:
+    """Bytes of ``x`` in host memory: a NumPy array or a CPU tensor (0 for
+    a tensor already on a card)."""
+    if isinstance(x, torch.Tensor):
+        return _nbytes(x) if x.device.type == "cpu" else 0
+    return x.nbytes
 
 
 class Separator:
@@ -494,22 +516,28 @@ class Separator:
         numpy_in = not isinstance(x, torch.Tensor)
         x = self._clip2d(x)
         n, n_chan = x.shape
-        if _is_int16(x) and self._fused is None:
-            # the registry runner has no cast stage: convert first
-            x = self._to_float(x)
         t_real, _, t_pad, n_bucket = self._prep_clip(n)
-        xd = self._upload(x)
-        xb = xd.new_zeros((n_bucket, n_chan))
-        self._place(xb, xd, t_pad)
-        if self._fused is None:
-            y = self._separate_host(xb[None], [t_pad], batch=False)[0]
-        else:
-            y = _masked_clip(xb, t_pad, self.nfft, self.hop,
-                             dict(n_src=self.n_src, **self._fused), self._win,
-                             self._win_s, self.pcm_out)
-        self._count(t_real, t_pad, n_chan)
-        start = self._start(t_pad)
-        return _output(y[start : start + n], numpy_in)
+        with span("serve.separate", clips=1, frames_real=t_real, frames_padded=t_pad):
+            if _is_int16(x) and self._fused is None:
+                # the registry runner has no cast stage: convert first
+                x = self._to_float(x)
+            with span("serve.upload", bytes=_host_nbytes(x)):
+                xd = self._upload(x)
+                xb = xd.new_zeros((n_bucket, n_chan))
+                self._place(xb, xd, t_pad)
+            if self._fused is None:
+                y = self._separate_host(xb[None], [t_pad], batch=False)[0]
+            else:
+                y = _masked_clip(xb, t_pad, self.nfft, self.hop,
+                                 dict(n_src=self.n_src, **self._fused), self._win,
+                                 self._win_s, self.pcm_out)
+            self._count(t_real, t_pad, n_chan)
+            start = self._start(t_pad)
+            y = y[start : start + n]
+            if not numpy_in:
+                return y
+            with span("serve.download", bytes=_nbytes(y)):
+                return _output(y, True)
 
     def _separate_host(self, xb, t_pads, batch=True):
         """The registry runner's path (``allow_unverified`` algorithms,
@@ -521,9 +549,12 @@ class Separator:
         kw = dict(self.algo_kwargs)
         if self.dtype is not None:
             kw.setdefault("dtype", self.dtype)
-        X = api.stft_analysis_batch(xb, self.nfft, self.hop, dtype=self.dtype)
-        for b, t_pad in enumerate(t_pads):
-            X[b, :t_pad] = 0.0
+        B = xb.shape[0]
+        n_frames = B * _n_frames(xb.shape[1], self.nfft, self.hop)
+        with span("serve.analysis", frames=n_frames, bins=B * (self.nfft // 2 + 1)):
+            X = api.stft_analysis_batch(xb, self.nfft, self.hop, dtype=self.dtype)
+            for b, t_pad in enumerate(t_pads):
+                X[b, :t_pad] = 0.0
         if not batch:
             Y = self.spec(X[0], n_src=self.n_src, **kw)
             if isinstance(Y, tuple):  # return_filters=True passthrough
@@ -533,8 +564,9 @@ class Separator:
             Y = self.spec.run_batch(X, n_src=self.n_src, **kw)
         if Y.ndim == 3:  # single-output extractors return (B, T, F)
             Y = Y[..., None]
-        y = api.stft_synthesis_batch(Y, self.nfft, self.hop, dtype=self.dtype)
-        return _pcm16(y) if self.pcm_out else y
+        with span("serve.synthesis", frames=n_frames):
+            y = api.stft_synthesis_batch(Y, self.nfft, self.hop, dtype=self.dtype)
+            return _pcm16(y) if self.pcm_out else y
 
     def separate_batch(self, clips) -> list:
         """Separate a sequence of clips, running same-bucket clips together.
@@ -554,48 +586,53 @@ class Separator:
         order, each NumPy or a tensor as its clip was.
         """
         clips = [self._clip2d(c, i) for i, c in enumerate(clips)]
-        if self._fused is None:
-            # the registry runner has no cast stage (see separate())
-            clips = [self._to_float(c) if _is_int16(c) else c for c in clips]
-        groups: dict[tuple[int, int], list[int]] = {}
-        prepped = []
-        for i, x in enumerate(clips):
-            prepped.append(self._prep_clip(x.shape[0]))
-            groups.setdefault((prepped[i][1], x.shape[1]), []).append(i)
-
-        out: list = [None] * len(clips)
-        for (_, n_chan), idxs in groups.items():
-            # all-int16 groups ride the int16 upload; mixed groups convert
-            # their int16 members exactly (1/32768) first
-            all_i16 = all(_is_int16(clips[i]) for i in idxs)
+        prepped = [self._prep_clip(x.shape[0]) for x in clips]
+        with span("serve.separate_batch", clips=len(clips),
+                  frames_real=sum(p[0] for p in prepped),
+                  frames_padded=sum(p[2] for p in prepped)):
             if self._fused is None:
-                ys = self._separate_host(self._group_bucket(clips, idxs, prepped, n_chan, all_i16),
-                                         [prepped[i][2] for i in idxs])
-            elif self.mesh is None:
-                ys = self._run_group(clips, idxs, prepped, n_chan, all_i16)
-            else:
-                ys = self._run_group_mesh(clips, idxs, prepped, n_chan, all_i16)
-            # one download for the group when any of its clips is NumPy
-            host = None
-            if any(not isinstance(clips[i], torch.Tensor) for i in idxs):
-                host = _output(ys, True)
-            for b, i in enumerate(idxs):
-                t_real, _, t_pad, _ = prepped[i]
-                span = slice(self._start(t_pad), self._start(t_pad) + clips[i].shape[0])
-                tensor_in = isinstance(clips[i], torch.Tensor)
-                out[i] = ys[b, span] if tensor_in else host[b, span]
-                self._count(t_real, t_pad, n_chan)
-        return out
+                # the registry runner has no cast stage (see separate())
+                clips = [self._to_float(c) if _is_int16(c) else c for c in clips]
+            groups: dict[tuple[int, int], list[int]] = {}
+            for i, x in enumerate(clips):
+                groups.setdefault((prepped[i][1], x.shape[1]), []).append(i)
+
+            out: list = [None] * len(clips)
+            for (_, n_chan), idxs in groups.items():
+                # all-int16 groups ride the int16 upload; mixed groups
+                # convert their int16 members exactly (1/32768) first
+                all_i16 = all(_is_int16(clips[i]) for i in idxs)
+                if self._fused is None:
+                    xb = self._group_bucket(clips, idxs, prepped, n_chan, all_i16)
+                    ys = self._separate_host(xb, [prepped[i][2] for i in idxs])
+                elif self.mesh is None:
+                    ys = self._run_group(clips, idxs, prepped, n_chan, all_i16)
+                else:
+                    ys = self._run_group_mesh(clips, idxs, prepped, n_chan, all_i16)
+                # one download for the group when any of its clips is NumPy
+                host = None
+                if any(not isinstance(clips[i], torch.Tensor) for i in idxs):
+                    with span("serve.download", bytes=_nbytes(ys)):
+                        host = _output(ys, True)
+                for b, i in enumerate(idxs):
+                    t_real, _, t_pad, _ = prepped[i]
+                    cut = slice(self._start(t_pad), self._start(t_pad) + clips[i].shape[0])
+                    tensor_in = isinstance(clips[i], torch.Tensor)
+                    out[i] = ys[b, cut] if tensor_in else host[b, cut]
+                    self._count(t_real, t_pad, n_chan)
+            return out
 
     def _group_bucket(self, clips, idxs, prepped, n_chan, all_i16):
         """The clips ``idxs`` placed in their zeroed buckets on the device:
         (len(idxs), n_bucket, n_chan), int16 when ``all_i16``."""
-        xs = [self._upload(clips[i] if all_i16 or not _is_int16(clips[i])
-                           else self._to_float(clips[i])) for i in idxs]
-        xb = xs[0].new_zeros((len(idxs), prepped[idxs[0]][3], n_chan))
-        for b, (xd, i) in enumerate(zip(xs, idxs)):
-            self._place(xb[b], xd, prepped[i][2])
-        return xb
+        hosts = [clips[i] if all_i16 or not _is_int16(clips[i]) else self._to_float(clips[i])
+                 for i in idxs]
+        with span("serve.upload", bytes=sum(map(_host_nbytes, hosts))):
+            xs = [self._upload(x) for x in hosts]
+            xb = xs[0].new_zeros((len(idxs), prepped[idxs[0]][3], n_chan))
+            for b, (xd, i) in enumerate(zip(xs, idxs)):
+                self._place(xb[b], xd, prepped[i][2])
+            return xb
 
     def _run_group(self, clips, idxs, prepped, n_chan, all_i16):
         """The separated buckets (len(idxs), n_bucket, n_out) of the clips
