@@ -16,8 +16,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    card's least time for the work (``bound_ms``);
 3b. fused: ``update_rows`` (the fused per-bin IP update) against its plain
    version at the headline and ragged shapes (F=129, not a multiple of the
-   warp kernel's bins per block) and on knife-edge bins, with the kernel,
-   plain and eager-epoch times and the bound;
+   warp kernel's bins per block), on knife-edge bins, and at the shapes the
+   benchmark's cells give it (one clip, phi (56, 3), F=2049; a folded group
+   of 8 rooms, phi (56, 8, 3), F=8 x 2049, blocks straddling two rooms), with
+   the kernel, plain and eager-epoch times and the bound;
 3c. entry: ``overiva_tpu_torch.entry.entry()`` (one ``_epoch`` at T=128,
    F=513, M=8, N=3, the twin of ``__graft_entry__.entry``) on the card,
    its W against the same function on the CPU (``ENTRY_TOL``), both
@@ -26,8 +28,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 4. trajectory: OverIVA in complex128 on the card against the float64 NumPy
    oracle at full width (M=8, N=3, nfft 4096, T=128), 10 iterations;
 5. main path: stft_analysis -> overiva (wcov="f32" and "bf16pack", complex64,
-   30 iterations) -> stft_synthesis, with launch counts, bss_eval SDR/SIR
-   gates against the oracle, and times;
+   30 iterations) -> stft_synthesis, with launch counts (``update_rows``
+   once an epoch of the f32 run, ``wcov_packed`` of the bf16pack run),
+   bss_eval SDR/SIR gates against the oracle, and times;
 5b. fused run: 30 epochs of ``_fused_epoch`` (demix -> phi, then the
    fused kernel) on phase 5's STFT, with the launch count, the same
    SDR/SIR gate against the oracle, and its time beside phase 5's;
@@ -59,7 +62,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``examples/parity_check.py``'s seed-7 scene printed beside the JAX
    function's spread over rotations of its whitening start (a complex64
    floor of the reference), every
-   run's kernel counters at 0, ``wcov_packed`` in both IP phases of
+   run's ``wcov_packed`` at 0 and ``update_rows`` at its complex64 f32
+   OverIVA-IP epochs (SparseAuxIVA's 20 + 3), ``wcov_packed`` in both IP phases of
    SparseAuxIVA's bf16pack tier (20 + 3 launches, within 0.3 dB mean SIR of
    f32), each family's time with its device ops an epoch and busy share,
    SparseAuxIVA's three phases apart, and ``separate(algo="fastmnmf2")``
@@ -74,7 +78,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    T-ISS, T-IP at f32 and bf16, ILRMA-T); the 30 registry names through
    ``__call__`` and ``run_batch`` on the card; ``separate(algo="tiss"|
    "tip"|"ilrma_t")`` and ``separate(wpe=True)`` at three lengths; both
-   kernels' counters zeroed before each joint run and read at 0 after;
+   kernels' counters zeroed before each joint run and read after:
+   ``wcov_packed`` at 0, ``update_rows`` at the run's complex64 f32
+   OverIVA-IP epochs (a fixed count: WPE -> OverIVA, ``REGISTRY_IP``);
 10. streaming: rooms from the port's simulation copy
    (``overiva_tpu_torch.sim``, ``examples/streaming.py``'s room and
    ``examples/parity_check.py``'s); ``OnlineAuxIVAISS`` in complex128 on
@@ -96,7 +102,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    phase 5's): ``Separator("overiva")`` f32 and ``wcov="bf16pack"``,
    NumPy float in and out, with ``wcov_packed`` at 30 launches a bf16pack
    clip (90 for a bf16pack ``separate_batch`` of three, clip by clip) and 0
-   under f32, ``update_rows`` at 0; SDR/SIR within 0.1 dB of the f64 oracle
+   under f32, ``update_rows`` at 30 an f32 clip and 0 under bf16pack (over
+   the phase: printed); SDR/SIR within 0.1 dB of the f64 oracle
    at each length (the oracle in worker processes while the card works;
    bf16pack within 0.3 dB mean SIR of f32); int16 PCM in equal to float /
    32768 and int16 out equal to the host's quantization, bit for bit;
@@ -133,7 +140,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    rank (a 1 x 1 mesh); then two NCCL ranks on cuda:0, whose refusal is
    printed. Each rank's launches of both kernels over the phase are
    counted and gated (``wcov_packed`` 90 on each gloo rank, 0 on the NCCL
-   rank, ``update_rows`` 0 on all).
+   rank; ``update_rows`` 90 on each gloo rank, the complex64 f32 Separator
+   batch's, 0 on the NCCL rank).
 13. sweep: the Monte-Carlo sweep twin (``python -m
    overiva_tpu_torch.examples.mbss_sim``) on ``bench/waspaa_demo_config.json``
    (nfft 2048, 4 s rooms, M in {2, 3, 5, 8}, N in {1, 2, 3}, nine algorithms)
@@ -142,7 +150,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    past the other two's records copied from the TPU snapshot
    ``data/waspaa_demo/``: no error entry, every score finite, the copied
    records untouched, ``wcov_packed`` once an epoch of each bf16pack run
-   (phase 5's count) and ``update_rows`` never, the bf16pack arm within 0.3
+   (phase 5's count) and ``update_rows`` once an epoch of each complex64
+   f32 IP arm that ran (``SWEEP_IP_ARMS``), the bf16pack arm within 0.3
    dB mean SIR of f32 ``overiva`` or of the plain bf16 arm in each cell;
    printed: the paired dSDR / dSIR per (algo, cell) against the snapshot,
    the wall per instance and the card's busy share over one instance (M=8,
@@ -154,7 +163,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``bench.py``'s 35 keys present and finite, no ``bench_errors`` and no
    ``bench_truncated_at``, ``wcov_packed`` launched 2 x (1 + 1) x 30 times
    (the two bf16pack rows, warm-up and timed run) and ``update_rows``
-   never.
+   once an epoch of the complex64 f32 and f32x3 IP rows
+   (``bench_ip_epochs``).
 
 Each phase ends with a ``[time]`` line, its wall in seconds.
 
@@ -251,15 +261,15 @@ def wcov_bound(K, F, m, T):
     return bound(n_bytes, flops, BF16_FLOPS)
 
 
-def update_rows_bound(m, n, F, T):
-    """X, phi, Cx, W in and W out, all in f32. The covariances are Hermitian
+def update_rows_bound(m, n, F, T, n_mix=1):
+    """X, phi (of ``n_mix`` folded mixtures), Cx, W in and W out, all in f32. The covariances are Hermitian
     and share x x^H: per bin and frame, each upper-triangle product once
     (6 flops off the diagonal, 3 on it), then one real-weighted multiply-add
     per source (4 flops off the diagonal, 2 on it). Per bin and source, at 8
     flops per complex multiply-add: W V_k, the Gaussian elimination and back
     substitution of the m x (m+1) tableau, the quadratic form, the tmp row
     and the N x m OC elimination."""
-    n_bytes = T * F * m * 8 + T * n * 4 + 3 * F * m * m * 8
+    n_bytes = T * F * m * 8 + T * n_mix * n * 4 + 3 * F * m * m * 8
     off = m * (m - 1) // 2
     cov = F * T * (off * (6 + 4 * n) + m * (3 + 2 * n))
     gauss = (m**3 - m) // 3 + m * (m - 1) // 2
@@ -455,19 +465,22 @@ def phase_fused_kernel(dev, seed):
     from overiva_tpu_torch.ops.update_rows import update_rows, update_rows_reference
 
     rng = np.random.default_rng(seed + 2)
-    result = {}
-    cases = [
-        (M, N, 2049, 128, "timed"), (M, N, 2049, 512, "timed"),
-        (2, 2, 129, 77, ""), (5, 2, 129, 77, ""), (8, 8, 129, 77, ""),
-        (7, 4, 129, 100, ""), (M, N, 129, 77, "knife"),
+    result = {"at_cells": {}}
+    cases = [  # (M, N, F, T, folded mixtures, kind)
+        (M, N, 2049, 128, 1, "timed"), (M, N, 2049, 512, 1, "timed"),
+        (2, 2, 129, 77, 1, ""), (5, 2, 129, 77, 1, ""), (8, 8, 129, 77, 1, ""),
+        (7, 4, 129, 100, 1, ""), (M, N, 129, 77, 1, "knife"),
+        # the benchmark's cells: a 56-frame serve clip, a group of 8 rooms
+        (M, N, 2049, 56, 1, "cell"), (M, N, 8 * 2049, 56, 8, "cell"),
     ]
-    for m, n, F, T, kind in cases:
+    for m, n, F, T, B, kind in cases:
         X = rng.standard_normal((T, F, m)) + 1j * rng.standard_normal((T, F, m))
         if kind == "knife":  # 4 silent bins, 4 rank-1 bins
             X[:, :4] = 0
             X[:, 4:8] = rng.standard_normal((T, 4, 1)) * rng.standard_normal((1, 4, m))
         X = torch.from_numpy(X.astype(np.complex64)).to(dev)
-        phi = torch.from_numpy((rng.random((T, n)) + 0.1).astype(np.float32)).to(dev)
+        phi = rng.random((T, B, n) if B > 1 else (T, n)) + 0.1
+        phi = torch.from_numpy(phi.astype(np.float32)).to(dev)
         W, Cx = core.prepare(X, n, False)
         W, Cx = W.contiguous(), Cx.contiguous()
         W_k = update_rows(phi, X, Cx, W, n)
@@ -476,7 +489,8 @@ def phase_fused_kernel(dev, seed):
         err = (W_k - W_p).abs().max().item()
         scale = W_p.abs().max().item()
         line = (
-            f"[fused] update_rows M={m} N={n} F={F} T={T}{' knife-edge' if kind == 'knife' else ''}: "
+            f"[fused] update_rows M={m} N={n} F={F} T={T}{f' B={B}' if B > 1 else ''}"
+            f"{' knife-edge' if kind == 'knife' else ''}: "
             f"max|dW| {err:.3e} = {err / scale:.2e} max|W|"
         )
         if kind == "knife":
@@ -495,10 +509,10 @@ def phase_fused_kernel(dev, seed):
             raise AssertionError(line + f" (tol {FUSED_TOL:g})")
         else:
             line += f" (tol {FUSED_TOL:g})"
-        if kind == "timed":
+        if kind in ("timed", "cell"):
             ms = cuda_ms(lambda: update_rows(phi, X, Cx, W, n), queued=True)
             plain_ms = cuda_ms(lambda: update_rows_reference(phi, X, Cx, W, n))
-            bound_ms, bound_by = update_rows_bound(m, n, F, T)
+            bound_ms, bound_by = update_rows_bound(m, n, F, T, B)
             line += (
                 f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                 f"{bound_ms * 1e3:.2f} us ({bound_by}) = {100 * bound_ms / ms:.1f} % "
@@ -510,11 +524,14 @@ def phase_fused_kernel(dev, seed):
                 line += (
                     f", eager _epoch {eager_ms:.4f} ms, _fused_epoch {fused_ms:.4f} ms"
                 )
-                result = {
+                result |= {
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                     "eager_epoch_ms": eager_ms, "fused_epoch_ms": fused_ms,
                 }
+            if kind == "cell":
+                result["at_cells"][f"F{F}_T{T}_B{B}"] = {
+                    "max_abs_err": err, "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by}
             line += " (20 runs)"
         log(line)
     return result
@@ -609,18 +626,18 @@ def phase_main_path(dev, mix, images, X64):
     X = api.stft_analysis(x, NFFT, device=dev)
     Y32 = api.overiva(X, n_src=N, n_iter=30, device=dev)
     torch.cuda.synchronize()
-    f32_launches = wcov_packed.launches
+    f32_launches = wcov_packed.launches, update_rows.launches
     Ypk = api.overiva(X, n_src=N, n_iter=30, wcov="bf16pack", device=dev)
     y32 = api.stft_synthesis(Y32, NFFT, device=dev)[start : start + n]
     ypk = api.stft_synthesis(Ypk, NFFT, device=dev)[start : start + n]
     torch.cuda.synchronize()
     launches = wcov_packed.launches
     log(
-        f"[main] launches of wcov_packed: f32 run {f32_launches} (want 0), "
-        f"f32 + bf16pack runs {launches} (want 30); of update_rows "
-        f"{update_rows.launches} (want 0: api.overiva runs the eager epoch)"
+        f"[main] launches of (wcov_packed, update_rows): f32 run {f32_launches} (want (0, "
+        f"30): the f32 epochs run the fused kernel), f32 + bf16pack runs ({launches}, "
+        f"{update_rows.launches}) (want (30, 30))"
     )
-    if f32_launches != 0 or launches != 30 or update_rows.launches != 0:
+    if f32_launches != (0, 30) or launches != 30 or update_rows.launches != 30:
         raise AssertionError("the main path did not go through the kernels as expected")
     for name, t in [("X", X), ("Y f32", Y32), ("Y bf16pack", Ypk),
                     ("y f32", y32), ("y bf16pack", ypk)]:
@@ -1102,6 +1119,8 @@ TF_C64 = [
     ("fastmnmf", {"n_src": N}, False, (12,), ()),
     ("sparseauxiva", {}, True, (), (20,)),
 ]
+# the full-band IP epochs that api.sparseauxiva runs after its n_iter (polish_iter)
+SPARSE_POLISH = 3
 
 
 def submit_tf_oracles(pool, X64):
@@ -1217,6 +1236,8 @@ def phase_tf_families(dev, mix, images, X64, main, oracle_jobs):
         epochs = sorted(gated + printed)
         outs, n_pk, n_fused = counted(lambda: at_epochs(
             lambda **k: getattr(api, name)(X, device=dev, **kw, **k), epochs))
+        # SparseAuxIVA's IP epochs (its n_iter, then the polish) take the fused update
+        n_ip = epochs[-1] + SPARSE_POLISH if name == "sparseauxiva" else 0
         if all((name, e) in oracle_y for e in epochs):
             outs_o = {e: oracle_y[name, e] for e in epochs}
         else:
@@ -1232,9 +1253,11 @@ def phase_tf_families(dev, mix, images, X64, main, oracle_jobs):
                 f"{np.round(sir, 3)}, oracle SDR {np.round(sdr_o, 3)} SIR {np.round(sir_o, 3)}; "
                 f"max|dSDR| {d_sdr:.4f} dB, max|dSIR| {d_sir:.4f} dB "
                 + ("(tol 0.1)" if e in gated else "(printed)")
-                + f"; launches of wcov_packed {n_pk}, of update_rows {n_fused} (want 0, 0)"
+                + f"; launches of wcov_packed {n_pk}, of update_rows {n_fused} (want 0, "
+                f"{n_ip}: the IP epochs)"
             )
-            if (e in gated and not (d_sdr < 0.1 and d_sir < 0.1)) or (n_pk, n_fused) != (0, 0):
+            if (e in gated and not (d_sdr < 0.1 and d_sir < 0.1)) or (n_pk, n_fused) != (
+                    0, n_ip):
                 raise AssertionError(line)
             log(line)
         if name == "sparseauxiva":  # the oracle's own complex64 run
@@ -1262,7 +1285,8 @@ def phase_tf_families(dev, mix, images, X64, main, oracle_jobs):
         f"of bf16pack differs from f32 by {d['f32']:.4f} dB (tol 0.3), from plain bf16 by "
         f"{d['bf16']:.4f} dB"
     )
-    if sp_launches != 23 or sp_runs["bf16"][1] != 0 or not d["f32"] < 0.3:
+    if (sp_launches != 23 or sp_runs["bf16"][1] != 0 or not d["f32"] < 0.3
+            or any(r[2] for r in sp_runs.values())):
         raise AssertionError(line)
     log(line)
 
@@ -1320,6 +1344,10 @@ JOINT_T = 512  # frames of the timed runs (bench.py's joint rows)
 # that the f64 oracle's CPU time stays near a minute (T-IP's 48-dim
 # covariances dominate it)
 C128_NFFT, C128_T = 1024, 128
+# the registry names whose epochs are complex64 OverIVA-IP epochs of the f32
+# tier, each one update_rows launch: {name: epochs beyond its n_iter}
+REGISTRY_IP = {"auxiva": 0, "auxiva-gauss": 0, "auxiva_pca": 0, "overiva": 0,
+               "overiva-gauss": 0, "sparseauxiva": SPARSE_POLISH}
 JOINT_C128 = [
     ("wpe", {"taps": 5, "delay": 2, "n_iter": 2}),
     ("tiss", {"n_src": N, "taps": 5, "delay": 2, "n_iter": 4}),
@@ -1364,7 +1392,8 @@ def phase_joint(dev, seed, main):
     f64 oracle copies element by element (and the -df registry names), c64
     quality through iSTFT and bss_eval against the f64 oracle (PARITY.md's
     joint rows), times at the headline (T=512), the 30 registry names on
-    the card, and both kernels' counters at 0 on every joint run. Returns
+    the card, and on every joint run ``wcov_packed`` at 0 and ``update_rows``
+    at the run's complex64 f32 OverIVA-IP epochs, a fixed count. Returns
     the launches of (wcov_packed, update_rows) over the joint runs."""
     from overiva_tpu_torch import api, oracle
     from overiva_tpu_torch.ops.update_rows import update_rows
@@ -1383,9 +1412,11 @@ def phase_joint(dev, seed, main):
     mark("the room's mixture")
     totals = [0, 0]
 
-    def counted(fn):
+    def counted(fn, ip_epochs=0):
         """fn() with both counters zeroed just before and read just after:
-        a joint run launches neither kernel."""
+        a joint run launches no ``wcov_packed``, and ``update_rows`` once for
+        each of its ``ip_epochs`` complex64 OverIVA-IP epochs of the f32 tier
+        (WPE -> OverIVA, the IP registry names)."""
         wcov_packed.launches = 0
         update_rows.launches = 0
         out = fn()
@@ -1393,8 +1424,9 @@ def phase_joint(dev, seed, main):
         got = (wcov_packed.launches, update_rows.launches)
         totals[0] += got[0]
         totals[1] += got[1]
-        if got != (0, 0):
-            raise AssertionError(f"a joint run launched (wcov_packed, update_rows) {got}")
+        if got != (0, ip_epochs):
+            raise AssertionError(f"a joint run launched (wcov_packed, update_rows) {got}, "
+                                 f"want (0, {ip_epochs})")
         for Y in out if isinstance(out, tuple) else (out,) if out is not None else ():
             if not bool(torch.isfinite(torch.as_tensor(Y)).all()):
                 raise AssertionError("non-finite joint output")
@@ -1460,20 +1492,21 @@ def phase_joint(dev, seed, main):
     Xq5_dev = torch.from_numpy(Xq5.astype(np.complex64)).to(dev)
     Xq3_dev = torch.from_numpy(Xq3.astype(np.complex64)).to(dev)
     q_images = images[:, :nq]
-    rows = [
-        ("tiss", lambda a, X5, X3: a.tiss(X5, n_src=N, taps=3, delay=2, n_iter=15)),
-        ("tip", lambda a, X5, X3: a.tip(X5, n_src=N, taps=3, delay=2, n_iter=5, warm_iter=5)),
-        ("ilrma_t", lambda a, X5, X3: a.ilrma_t(X3, taps=3, delay=2, n_iter=15, seed=5)),
+    rows = [  # (name, run, its IP epochs)
+        ("tiss", lambda a, X5, X3: a.tiss(X5, n_src=N, taps=3, delay=2, n_iter=15), 0),
+        ("tip", lambda a, X5, X3: a.tip(X5, n_src=N, taps=3, delay=2, n_iter=5, warm_iter=5),
+         0),
+        ("ilrma_t", lambda a, X5, X3: a.ilrma_t(X3, taps=3, delay=2, n_iter=15, seed=5), 0),
         ("wpe+overiva", lambda a, X5, X3: a.overiva(a.wpe(X5, taps=3, delay=2, n_iter=2),
-                                                   n_src=N, n_iter=15)),
+                                                   n_src=N, n_iter=15), 15),
     ]
 
     def quality(Y):
         y = oracle.synthesis(np.asarray(Y), QUALITY_NFFT, hop)[QUALITY_NFFT - hop:][:nq]
         return score(y, q_images, nq)
 
-    for name, run in rows:
-        Y = counted(lambda: run(api, Xq5_dev, Xq3_dev)).cpu().numpy()
+    for name, run, ip_epochs in rows:
+        Y = counted(lambda: run(api, Xq5_dev, Xq3_dev), ip_epochs).cpu().numpy()
         sdr, sir = quality(Y)
         sdr_o, sir_o = quality(run(oracle, Xq5, Xq3))
         d_sdr, d_sir = np.abs(sdr - sdr_o).max(), np.abs(sir - sir_o).max()
@@ -1498,18 +1531,18 @@ def phase_joint(dev, seed, main):
     X = api.stft_analysis(x, NFFT, device=dev)
     if X.shape != (JOINT_T, NFFT // 2 + 1, M):
         raise AssertionError(f"joint STFT shape {tuple(X.shape)}")
-    runs = [
-        ("wpe (taps 5, delay 2)", 2, lambda k: api.wpe(X, taps=5, delay=2, n_iter=k)),
+    runs = [  # (name, epochs, run, whether its epochs are OverIVA-IP ones)
+        ("wpe (taps 5, delay 2)", 2, lambda k: api.wpe(X, taps=5, delay=2, n_iter=k), False),
         ("wpe 2 it -> overiva", 30,
-         lambda k: api.overiva(api.wpe(X, taps=5, delay=2, n_iter=2), n_src=N, n_iter=k)),
-        ("tiss", 30, lambda k: api.tiss(X, n_src=N, n_iter=k)),
-        ("tip f32, after 10 T-ISS epochs", 10, lambda k: api.tip(X, n_src=N, n_iter=k)),
+         lambda k: api.overiva(api.wpe(X, taps=5, delay=2, n_iter=2), n_src=N, n_iter=k), True),
+        ("tiss", 30, lambda k: api.tiss(X, n_src=N, n_iter=k), False),
+        ("tip f32, after 10 T-ISS epochs", 10, lambda k: api.tip(X, n_src=N, n_iter=k), False),
         ("tip bf16, after 10 T-ISS epochs", 10,
-         lambda k: api.tip(X, n_src=N, n_iter=k, wcov="bf16")),
-        ("ilrma_t", 30, lambda k: api.ilrma_t(X, n_iter=k)),
+         lambda k: api.tip(X, n_src=N, n_iter=k, wcov="bf16"), False),
+        ("ilrma_t", 30, lambda k: api.ilrma_t(X, n_iter=k), False),
     ]
-    for name, k, fn in runs:
-        Y = counted(lambda: fn(k))
+    for name, k, fn, ip in runs:
+        Y = counted(lambda: fn(k), k if ip else 0)
         if Y.shape[:2] != X.shape[:2]:
             raise AssertionError(f"{name}: output shape {tuple(Y.shape)}")
         t = best_wall_s(lambda: fn(k))
@@ -1536,14 +1569,18 @@ def phase_joint(dev, seed, main):
         kw = {"n_iter": min(spec.defaults.get("n_iter", 3), 40 if spec.single_output else 3)}
         kw |= {"warm_iter": 2} if "warm_iter" in spec.defaults else {}
         kw |= {"lasso_iter": 20} if name == "sparseauxiva" else {}
-        Y = counted(lambda: spec(Xr, n_src=n_src, **kw))
-        Yb = counted(lambda: spec.run_batch(torch.stack([Xr, Xr.flip(0)]), n_src=n_src, **kw))
+        # an IP name's epochs, in one folded run for run_batch too
+        ip_epochs = kw["n_iter"] + REGISTRY_IP[name] if name in REGISTRY_IP else 0
+        Y = counted(lambda: spec(Xr, n_src=n_src, **kw), ip_epochs)
+        Yb = counted(lambda: spec.run_batch(torch.stack([Xr, Xr.flip(0)]), n_src=n_src, **kw),
+                     ip_epochs)
         if (Y.shape != (T, F, n_src) or Yb.shape != (2, T, F, n_src)
                 or Y.device.type != dev.type or Yb.device.type != dev.type):
             raise AssertionError(f"registry {name}: {tuple(Y.shape)}, {tuple(Yb.shape)}")
     log(
         f"[joint] registry: all {len(ALGORITHMS)} names ran __call__ and run_batch on the card "
-        f"(X {tuple(Xr.shape)}, c64, outputs on cuda, finite, no kernel launch) in "
+        f"(X {tuple(Xr.shape)}, c64, outputs on cuda, finite; no wcov_packed launch, "
+        f"update_rows once an IP epoch of {sorted(REGISTRY_IP)}) in "
         f"{time.perf_counter() - t0:.2f} s"
     )
 
@@ -1552,8 +1589,10 @@ def phase_joint(dev, seed, main):
     # --- requests, samples in and out
     for algo, n_iter, opts in [("tiss", 30, {}), ("tip", 10, {}), ("ilrma_t", 30, {}),
                                ("ip", 30, {"wpe": True})]:
-        # the requests check their own outputs; counted reads the launches
-        counted(lambda: phase_requests(dev, seed, algo, n_iter, "joint", **opts) and None)
+        # the requests check their own outputs; counted reads the launches: a
+        # warm-up and three clips, each n_iter IP epochs under algo="ip"
+        counted(lambda: phase_requests(dev, seed, algo, n_iter, "joint", **opts) and None,
+                4 * n_iter if algo == "ip" else 0)
     mark("requests")
     return tuple(totals)
 
@@ -1915,7 +1954,8 @@ def phase_serving(dev, clips, oracle_futures, main, requests_ms):
     since the script started; phase 5 scored the 128-frame one), then the
     request latency (median and p95) with device ops and busy share.
     Returns the wcov_packed launches [f32 clip, bf16pack clip, bf16pack
-    group of three] and update_rows' over the phase."""
+    group of three] and update_rows' over the phase (30 an f32 clip, gated
+    where the clips are counted)."""
     import contextlib
     import io
 
@@ -1948,30 +1988,34 @@ def phase_serving(dev, clips, oracle_futures, main, requests_ms):
         x = clips[f][0]
         for name, s in sep.items():
             wcov_packed.launches = 0
+            fused0 = update_rows.launches
             y = s.separate(x)
             counts[name, f] = wcov_packed.launches
-            want = 30 if name == "bf16pack" else 0
-            if wcov_packed.launches != want or update_rows.launches:
+            fused = update_rows.launches - fused0
+            # bf16pack runs the packed kernel, f32 the fused update, once an epoch
+            want = (30, 0) if name == "bf16pack" else (0, 30)
+            if (wcov_packed.launches, fused) != want:
                 raise AssertionError(
-                    f"{name} at {f} frames: wcov_packed {wcov_packed.launches} "
-                    f"(want {want}), update_rows {update_rows.launches} (want 0)")
+                    f"{name} at {f} frames: (wcov_packed, update_rows) "
+                    f"{(wcov_packed.launches, fused)} (want {want})")
             if y.shape != (x.shape[0], N) or y.dtype != np.float32 or not np.isfinite(y).all():
                 raise AssertionError(f"bad output {y.shape} {y.dtype} at {f} frames")
             ys[name, f] = y
     # a bf16pack separate_batch of three clips, two of them in bucket 72
     wcov_packed.launches = 0
+    fused0 = update_rows.launches
     outs = sep["bf16pack"].separate_batch(
         [clips[64][0], clips[64][0][: samples_for_frames(60)], clips[128][0]])
     serve_launches = [counts["f32", 128], counts["bf16pack", 128], wcov_packed.launches]
-    if serve_launches[2] != 90 or update_rows.launches:
+    if serve_launches[2] != 90 or update_rows.launches != fused0:
         raise AssertionError(f"bf16pack group of 3: {serve_launches[2]} launches (want 90)")
     for f, o in ((64, outs[0]), (128, outs[2])):
         if not np.array_equal(o, ys["bf16pack", f]):
             raise AssertionError(f"bf16pack group differs from per-clip at {f} frames")
     log(f"[serving] launches of wcov_packed a clip: f32 {serve_launches[0]}, bf16pack "
         f"{serve_launches[1]}; a bf16pack separate_batch of 3 clips (two in bucket 72) "
-        f"{serve_launches[2]}, clip by clip, equal to per-clip bit for bit; update_rows "
-        f"{update_rows.launches}; buckets {[sep['f32']._bucket(f) for f in SERVE_FRAMES]}")
+        f"{serve_launches[2]}, clip by clip, equal to per-clip bit for bit; update_rows 30 "
+        f"an f32 clip, 0 under bf16pack; buckets {[sep['f32']._bucket(f) for f in SERVE_FRAMES]}")
     mark("launches")
 
     # --- int16 PCM in and out: bit for bit against float / 32768 and the host's quantization
@@ -2129,8 +2173,8 @@ def phase_serving(dev, clips, oracle_futures, main, requests_ms):
     mark("timed requests")
 
     torch.cuda.synchronize()
-    if update_rows.launches:
-        raise AssertionError(f"update_rows launched {update_rows.launches} times (want 0)")
+    log(f"[serving] launches of update_rows over the phase: {update_rows.launches} (the f32 "
+        f"complex64 IP runs', once an epoch; gated clip by clip above)")
     return serve_launches, update_rows.launches
 
 
@@ -2279,18 +2323,22 @@ def phase_parallel(dev, mix, images, main, serving, scene_futures, pool):
         ys = r0["serving"][tier][0]
         rel = max(float(np.abs(y - r).max() / np.abs(r).max()) for y, r in zip(ys, ref))
         got = [o["serving"][tier][2] for o in outs]
-        # each rank runs one lane of each bucket group: one clip a group (on the CPU
-        # of a rehearsal the wrappers run their plain versions and count nothing)
-        want = 30 * len(clips) if "bf16pack" in tier and dev.type == "cuda" else 0
-        if any(g != {"wcov_packed": want, "update_rows": 0} for g in got):
-            raise AssertionError(f"Separator mesh {tier}: launches {got}, want {want} a rank")
+        # each rank runs one lane of each bucket group: one clip a group, bf16pack
+        # through the packed kernel, complex64 f32 through the fused update (on the
+        # CPU of a rehearsal the wrappers run their plain versions and count nothing)
+        on_card = 30 * len(clips) if dev.type == "cuda" else 0
+        want = on_card if "bf16pack" in tier else 0
+        want_fused = on_card if tier == "c64 f32" else 0
+        if any(g != {"wcov_packed": want, "update_rows": want_fused} for g in got):
+            raise AssertionError(f"Separator mesh {tier}: launches {got}, want {want}, "
+                                 f"{want_fused} a rank")
         if "c128" in tier and rel > 1e-7:
             raise AssertionError(f"Separator mesh {tier}: {rel:.3e} from meshless (tol 1e-7)")
         log(f"[parallel] Separator(mesh=({PAR_RANKS}, 1)) {tier}, {kw['n_iter']} it, frames "
             f"{SERVE_FRAMES}: max|mesh - meshless| / max|meshless| {rel:.3e}"
             + (" (tol 1e-7)" if "c128" in tier else " (printed)")
             + f"; launches a rank: wcov_packed {[g['wcov_packed'] for g in got]} "
-            f"(want {want}), update_rows {[g['update_rows'] for g in got]}")
+            f"(want {want}), update_rows {[g['update_rows'] for g in got]} (want {want_fused})")
 
     # --- side by side: sharded_overiva on one NCCL rank (a 1 x 1 mesh), and two NCCL
     # ranks on cuda:0, whose refusal is printed, not gated (a CPU rehearsal of the
@@ -2319,13 +2367,14 @@ def phase_parallel(dev, mix, images, main, serving, scene_futures, pool):
         log(f"[parallel] the NCCL launches, spawn included: {time.perf_counter() - t0:.1f} s")
 
     # --- the kernels over the phase, each rank's counts set to 0 when it started: only
-    # the bf16pack Separator batch reaches a kernel
+    # the bf16pack Separator batch reaches the packed kernel, and only the complex64
+    # f32 one the fused update (the sharded families run the eager epoch)
     par_launches = tuple([g[k] for g in rank_launches] for k in ("wcov_packed", "update_rows"))
     want = ([30 * len(clips) if dev.type == "cuda" else 0] * PAR_RANKS
             + [0] * (len(rank_launches) - PAR_RANKS))
     log(f"[parallel] launches over the phase, each rank (gloo, then NCCL): wcov_packed "
-        f"{par_launches[0]} (want {want}), update_rows {par_launches[1]} (want 0)")
-    if par_launches != (want, [0] * len(rank_launches)):
+        f"{par_launches[0]} (want {want}), update_rows {par_launches[1]} (want {want})")
+    if par_launches != (want, want):
         raise AssertionError("the parallel phase's kernel launches are off")
 
     # --- quality: the headline and the scaled gate
@@ -2361,6 +2410,8 @@ SWEEP_CONFIG = "bench/waspaa_demo_config.json"
 SWEEP_SNAPSHOT = "data/waspaa_demo"
 SWEEP_SEED = 981238343  # the first seed that SeedSequence(777) draws
 SWEEP_BF16 = {"n_iter": 20, "init_eig": True, "wcov": "bf16pack"}
+# the demo config's arms that run complex64 OverIVA-IP epochs of the f32 tier
+SWEEP_IP_ARMS = ("auxiva", "overiva", "overiva-gauss", "auxiva_pca")
 SWEEP_SERIAL_TOL = 2e-4  # batched vs serial, dB (tests/test_sweep_batch.py)
 SWEEP_BF16_TOL = 0.3  # bf16pack vs f32 (or bf16) mean SIR, dB (tests/test_bf16.py)
 SWEEP_KEYS = ("sdr", "sir", "sdr_improvement", "sir_improvement")
@@ -2398,7 +2449,8 @@ def phase_sweep(dev, main):
     past the snapshot's other two; the small config batched (3) against serial (1);
     gates: no error entry, every score finite, the copied records untouched,
     ``wcov_packed`` once an epoch of each bf16pack run (the epoch count read off phase
-    5), ``update_rows`` never, the bf16pack arm within ``SWEEP_BF16_TOL`` mean SIR of
+    5), ``update_rows`` once an epoch of each complex64 f32 IP arm that ran
+    (``SWEEP_IP_ARMS``), the bf16pack arm within ``SWEEP_BF16_TOL`` mean SIR of
     the f32 ``overiva`` column or of the plain bf16 arm (no kernel) in each cell;
     printed: the paired deltas against the TPU snapshot, the wall per instance, the
     card's busy share over one instance. Returns (wcov_packed, update_rows) launches
@@ -2446,16 +2498,19 @@ def phase_sweep(dev, main):
                                             if k in res)]
         n_bf16 = sum("overiva@bf16pack" in r["results"] for r in new.values())
         want = main["launches"] // 30 * SWEEP_BF16["n_iter"] * n_bf16  # phase 5: 30 it
+        # the complex64 f32 IP arms that ran, n_iter epochs each
+        n_ip = [a for r in new.values() for a in SWEEP_IP_ARMS if a in r["results"]]
+        want_ip = sum(cfg["algos"][a]["n_iter"] for a in n_ip)
         log(f"[sweep] demo config ({SWEEP_CONFIG} + the bf16pack and bf16 arms, batch 1): "
             f"{len(new)} instances of seed {SWEEP_SEED} run, {len(copied)} resumed from "
             f"{SWEEP_SNAPSHOT}; "
             f"error or non-finite entries {bad} (want none); launches of wcov_packed "
             f"{launches[0]} (want {want}: {main['launches']} over phase 5's 30 epochs x "
             f"{SWEEP_BF16['n_iter']} x {n_bf16} bf16pack runs), of update_rows {launches[1]} "
-            f"(want 0)")
+            f"(want {want_ip}: the n_iter of {len(n_ip)} runs of {', '.join(SWEEP_IP_ARMS)})")
         if bad:
             raise AssertionError("the demo sweep recorded errors or non-finite scores")
-        if launches != (want, 0):
+        if launches != (want, want_ip):
             raise AssertionError("the sweep's kernel launches are off")
 
         # --- bf16pack against f32, paired, per cell (mean SIR; N=1 cells have none):
@@ -2532,12 +2587,23 @@ def phase_sweep(dev, main):
 BENCH_REPEATS = 1
 
 
+def bench_ip_epochs(n_iter, repeats):
+    """The complex64 OverIVA-IP epochs of the f32 and f32x3 tiers in one run
+    of the bench twin at ``n_iter`` epochs a row, each row run once to warm up
+    and ``repeats`` times: the headline, the f32x3 row, T512 and its f32x3 row
+    and the 16-mixture fold (n_iter each), the marginal row (n_iter + 200), the
+    roofline row (n_iter + 100), and the serving rows' four Separator calls
+    (float and int16, one clip and a batch of 8 of one bucket, n_iter each)."""
+    return (1 + repeats) * (5 * n_iter + (n_iter + 200) + (n_iter + 100) + 4 * n_iter)
+
+
 def phase_bench(dev):
     """The bench twin (``overiva_tpu_torch/examples/bench.py``) at its full shape
     with ``BENCH_REPEATS`` timed runs a row; its JSON printed; gates: every key of
     ``bench.EXTRA_KEYS`` present and finite, no row error, no truncation,
     ``wcov_packed`` launched by the two bf16pack rows alone (warm-up and timed
-    runs, 30 epochs each) and ``update_rows`` never. Returns (wcov_packed,
+    runs, 30 epochs each) and ``update_rows`` once an epoch of the complex64 f32
+    and f32x3 IP rows (:func:`bench_ip_epochs`). Returns (wcov_packed,
     update_rows) launches."""
     from overiva_tpu_torch.examples import bench
     from overiva_tpu_torch.ops.update_rows import update_rows
@@ -2553,16 +2619,17 @@ def phase_bench(dev):
     missing = [k for k in bench.EXTRA_KEYS if k not in extra]
     bad = [k for k in bench.EXTRA_KEYS if k in extra and not np.isfinite(extra[k])]
     want = 2 * (1 + BENCH_REPEATS) * bench.FULL.n_iter
+    want_ip = bench_ip_epochs(bench.FULL.n_iter, BENCH_REPEATS)
     log(f"[bench] headline {out['value']} it/s (vs_baseline {out['vs_baseline']}) on "
         f"{extra['device']}; missing keys {missing}, non-finite {bad}, bench_errors "
         f"{extra.get('bench_errors')}, bench_truncated_at {extra.get('bench_truncated_at')} "
         f"(want none); launches of wcov_packed {launches[0]} (want {want}: 2 bf16pack rows x "
         f"{1 + BENCH_REPEATS} runs x {bench.FULL.n_iter} epochs), of update_rows "
-        f"{launches[1]} (want 0)")
+        f"{launches[1]} (want {want_ip}: the f32 and f32x3 IP rows, once an epoch)")
     if (missing or bad or not np.isfinite(out["value"]) or "bench_errors" in extra
             or "bench_truncated_at" in extra):
         raise AssertionError("the bench twin's line is incomplete")
-    if launches != (want, 0):
+    if launches != (want, want_ip):
         raise AssertionError("the bench twin's kernel launches are off")
     return launches
 

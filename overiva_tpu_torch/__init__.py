@@ -52,9 +52,17 @@ needs are its own copies (``oracle/``, ``metrics/``).
 
 Two CUDA C++ kernels for ``sm_90a``, built with ``nvcc`` at first use: the
 weighted covariance of ``wcov="bf16pack"`` (``csrc/wcov_packed.cu``) and
-the fused per-bin IP update (``csrc/update_rows.cu``, ``ops/update_rows.py``,
-run by ``models/overiva.py::_fused_epoch``). ``overiva_ip2`` and both IP
-phases of ``sparseauxiva`` with ``wcov="bf16pack"`` run the first once an
+the fused per-bin IP update (``csrc/update_rows.cu``, ``ops/update_rows.py``).
+Every IP epoch of ``models/overiva.py::overiva_iterations`` on a CUDA
+complex64 input of the exact-f32 tier (``wcov`` "f32" or "f32x3") runs the
+second, one launch an epoch, for one clip or for a batch folded into the
+bin axis: ``overiva``, ``auxiva`` and their batch forms, ``separate(algo=
+"ip")``, ``auxiva_pca`` with ``inner="ip"``, ``sparseauxiva``, the
+``Separator``'s ``ip`` and ``pca_ip`` branches and the registry names that
+run them. CPU tensors, complex128 (``acc="f32x2"``, the ``-df`` names),
+``bf16`` and ``bf16pack`` keep the eager epoch, as do IP2, ISS, the tap
+families and the sharded families. ``overiva_ip2`` and both IP phases of
+``sparseauxiva`` with ``wcov="bf16pack"`` run the first kernel once an
 epoch too.
 """
 

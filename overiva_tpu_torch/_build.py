@@ -140,7 +140,7 @@ def library() -> ctypes.CDLL:
     lib.wcov_packed_launch.restype = ci
     lib.wcov_packed_error_string.argtypes = [ci]
     lib.wcov_packed_error_string.restype = ctypes.c_char_p
-    lib.update_rows_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.update_rows_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
     lib.update_rows_launch.restype = ci
     lib.update_rows_error_string.argtypes = [ci]
     lib.update_rows_error_string.restype = ctypes.c_char_p

@@ -5,7 +5,7 @@
 // update_J). For each bin f and each source k in order, on complex64 data in
 // f32 arithmetic:
 //
-//   V_k = (1/T) sum_t phi[t,k] x x^H         (all N sources in one pass)
+//   V_k = (1/T) sum_t phi[t,b,k] x x^H       (all N sources in one pass)
 //   A = W V_k;  solve A w = e_k;  w = clamp_pow2(w)
 //   s = w^H V_k w;  W[k] = conj(w / sqrt(s)), or W[k] kept where s has no
 //                   significant bits (s <= 4 eps sum|terms|)
@@ -19,6 +19,11 @@
 // unused rows), clamp_pow2 rescales huge solutions by exact powers of two,
 // and quad_form's keep-previous-row mask replaces rsqrt(max(s, 1e-30)).
 // tmp = W1 Cx is kept row by row, as the port's eager epoch keeps it.
+//
+// phi is (T, n_mix, N): X may hold n_mix mixtures folded into its bin axis
+// (models/overiva.py::fold_mixtures), mixture b owning bins b F/n_mix ..
+// (b + 1) F/n_mix - 1, and bin f is weighted by the phi of its own mixture,
+// b = f / (F/n_mix). n_mix = 1 is the single-clip layout (T, N).
 //
 // What bounds it: at the headline (F=2049, T=128, M=8, N=3) one launch reads
 // X once (16.8 MB) and Cx, W once and writes W (1.05 MB each): 19.9 MB, about
@@ -265,7 +270,7 @@ __global__ void __launch_bounds__(1024) update_rows_kernel(const float2* __restr
                                    const float2* __restrict__ Cx,
                                    const float2* __restrict__ W_in,
                                    float2* __restrict__ W_out,
-                                   int T, int F, int M, int N) {
+                                   int T, int F, int M, int N, int n_mix) {
   extern __shared__ float2 smem[];
   const int ld = M + 1;  // padded row stride of every shared matrix
   const int chunk = kChunkElems / M;
@@ -285,6 +290,7 @@ __global__ void __launch_bounds__(1024) update_rows_kernel(const float2* __restr
   s.ints = reinterpret_cast<int*>(s.red + 32);  // (2 + M)
 
   const int f = blockIdx.x;
+  const int mix = f / (F / n_mix);  // the mixture whose phi weights bin f
   const int tid = threadIdx.x;
   const int m = tid / M;
   const int n = tid % M;
@@ -307,8 +313,10 @@ __global__ void __launch_bounds__(1024) update_rows_kernel(const float2* __restr
       const int t = idx / M;
       sX[idx] = X[(static_cast<size_t>(t0 + t) * F + f) * M + idx % M];
     }
-    for (int idx = tid; idx < tc * N; idx += blockDim.x)
-      sPhi[idx] = phi[static_cast<size_t>(t0) * N + idx];
+    for (int idx = tid; idx < tc * N; idx += blockDim.x) {
+      const int t = idx / N;
+      sPhi[idx] = phi[(static_cast<size_t>(t0 + t) * n_mix + mix) * N + idx - t * N];
+    }
     __syncthreads();
     if (owner) {
       for (int t = 0; t < tc; ++t) {
@@ -417,7 +425,7 @@ size_t shared_bytes(int M, int N) {
 
 template <int kMaxN>
 int launch(const void* X, const void* phi, const void* Cx, const void* W_in,
-           void* W_out, int T, int F, int M, int N, cudaStream_t stream) {
+           void* W_out, int T, int F, int M, int N, int n_mix, cudaStream_t stream) {
   const size_t smem = shared_bytes(M, N);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -429,7 +437,7 @@ int launch(const void* X, const void* phi, const void* Cx, const void* W_in,
   update_rows_kernel<kMaxN><<<F, threads, smem, stream>>>(
       static_cast<const float2*>(X), static_cast<const float*>(phi),
       static_cast<const float2*>(Cx), static_cast<const float2*>(W_in),
-      static_cast<float2*>(W_out), T, F, M, N);
+      static_cast<float2*>(W_out), T, F, M, N, n_mix);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -722,18 +730,25 @@ __device__ __forceinline__ void accumulate_chunk_n(int N, float2 (&acc)[M], cons
 // Launch bounds: the real block size, and one block an SM is enough. Without
 // the second bound ptxas held the M = 4, 5, 6 instances to 64 registers
 // and spilled; with it no instance spills, and M = 8 keeps its 113.
+//
+// phi_slots: the most mixtures that kBinsPerBlock adjacent bins can
+// straddle (1 for one clip, 2 where a mixture holds kBinsPerBlock - 1 bins or
+// more); each block stages the phi of each mixture it touches.
 template <int M>
 __global__ void __launch_bounds__(kBinThreads, 1) update_rows_warp_kernel(
     const float2* __restrict__ X, const float* __restrict__ phi,
     const float2* __restrict__ Cx, const float2* __restrict__ W_in,
-    float2* __restrict__ W_out, int T, int F, int N, bool vec16) {
+    float2* __restrict__ W_out, int T, int F, int N, int n_mix, int phi_slots,
+    bool vec16) {
   constexpr int S = BinTiles<M>::S;
   constexpr int kSlab = kBinsPerBlock * M;  // complex values of one staged frame
   constexpr int kE = (M * M + 31) / 32;     // M x M elements per lane
+  constexpr int kPhiSlot = kFrames * M;     // floats of one mixture's staged phi
   extern __shared__ float4 smem_raw[];
   float2* sX = reinterpret_cast<float2*>(smem_raw);           // [2][kFrames][kSlab]
-  float* sPhi = reinterpret_cast<float*>(sX + 2 * kFrames * kSlab);  // [2][kFrames * N]
-  BinTiles<M>* tiles = reinterpret_cast<BinTiles<M>*>(sPhi + 2 * kFrames * M);
+  // [2][phi_slots][kFrames * N]
+  float* sPhi = reinterpret_cast<float*>(sX + 2 * kFrames * kSlab);
+  BinTiles<M>* tiles = reinterpret_cast<BinTiles<M>*>(sPhi + 2 * phi_slots * kPhiSlot);
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -743,8 +758,14 @@ __global__ void __launch_bounds__(kBinThreads, 1) update_rows_warp_kernel(
   const bool live = bin < nb;
   BinTiles<M>& t = tiles[bin];
   const size_t mat = static_cast<size_t>(f0 + bin) * M * M;
+  // the mixtures of the block's bins are mix0 .. mix0 + n_slots - 1
+  const int f_mix = F / n_mix;
+  const int mix0 = f0 / f_mix;
+  const int n_slots = (f0 + nb - 1) / f_mix - mix0 + 1;
+  const int slot = (f0 + min(bin, nb - 1)) / f_mix - mix0;  // this warp's mixture
 
-  // chunk c: frames [c kFrames, ...) of bins f0 .. f0 + nb - 1, and their phi
+  // chunk c: frames [c kFrames, ...) of bins f0 .. f0 + nb - 1, and the phi
+  // of their mixtures
   auto stage = [&](int c) {
     const int t0 = c * kFrames;
     const int tc = min(kFrames, T - t0);
@@ -766,9 +787,15 @@ __global__ void __launch_bounds__(kBinThreads, 1) update_rows_warp_kernel(
         cp_async8(dst + tt * kSlab + k, src + tt * stride + k);
       }
     }
-    float* pdst = sPhi + (c & 1) * kFrames * M;
-    for (int u = threadIdx.x; u < tc * N; u += kBinThreads)
-      cp_async4(pdst + u, phi + static_cast<size_t>(t0) * N + u);
+    float* pdst = sPhi + (c & 1) * phi_slots * kPhiSlot;
+    const int per_slot = tc * N;
+    for (int u = threadIdx.x; u < n_slots * per_slot; u += kBinThreads) {
+      const int sl = u / per_slot;
+      const int v = u - sl * per_slot;
+      const int tt = v / N;
+      cp_async4(pdst + sl * kPhiSlot + v,
+                phi + (static_cast<size_t>(t0 + tt) * n_mix + mix0 + sl) * N + v - tt * N);
+    }
     cp_async_commit();
   };
 
@@ -808,8 +835,8 @@ __global__ void __launch_bounds__(kBinThreads, 1) update_rows_warp_kernel(
     if (c + 1 < n_chunks) stage(c + 1);
     if (!live) continue;
     accumulate_chunk_n<M>(N, acc, sX + (c & 1) * kFrames * kSlab + bin * M,
-                          sPhi + (c & 1) * kFrames * M, min(kFrames, T - c * kFrames), i0, i1,
-                          diag);
+                          sPhi + ((c & 1) * phi_slots + slot) * kPhiSlot,
+                          min(kFrames, T - c * kFrames), i0, i1, diag);
   }
   if (!live) return;
 
@@ -926,15 +953,20 @@ __global__ void __launch_bounds__(kBinThreads, 1) update_rows_warp_kernel(
 }
 
 template <int M>
-constexpr size_t warp_shared_bytes() {
-  return sizeof(float2) * 2 * kFrames * kBinsPerBlock * M + sizeof(float) * 2 * kFrames * M +
-         sizeof(BinTiles<M>) * kBinsPerBlock;
+size_t warp_shared_bytes(int phi_slots) {
+  return sizeof(float2) * 2 * kFrames * kBinsPerBlock * M +
+         sizeof(float) * 2 * phi_slots * kFrames * M + sizeof(BinTiles<M>) * kBinsPerBlock;
 }
 
 template <int M>
 int launch_warp(const void* X, const void* phi, const void* Cx, const void* W_in,
-                void* W_out, int T, int F, int N, cudaStream_t stream) {
-  constexpr size_t smem = warp_shared_bytes<M>();
+                void* W_out, int T, int F, int N, int n_mix, cudaStream_t stream) {
+  // kBinsPerBlock adjacent bins straddle at most ceil((kBinsPerBlock - 1) /
+  // f_mix) + 1 mixtures of f_mix bins each
+  const int f_mix = F / n_mix;
+  const int straddled = (kBinsPerBlock - 1 + f_mix - 1) / f_mix + 1;
+  const int phi_slots = straddled < n_mix ? straddled : n_mix;
+  const size_t smem = warp_shared_bytes<M>(phi_slots);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         update_rows_warp_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -947,7 +979,7 @@ int launch_warp(const void* X, const void* phi, const void* Cx, const void* W_in
   update_rows_warp_kernel<M><<<blocks, kBinThreads, smem, stream>>>(
       static_cast<const float2*>(X), static_cast<const float*>(phi),
       static_cast<const float2*>(Cx), static_cast<const float2*>(W_in),
-      static_cast<float2*>(W_out), T, F, N, vec16);
+      static_cast<float2*>(W_out), T, F, N, n_mix, phi_slots, vec16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -956,30 +988,30 @@ int launch_warp(const void* X, const void* phi, const void* Cx, const void* W_in
 extern "C" {
 
 // Launches on `stream` and returns the CUDA error code (0 on success).
-// X: (T, F, M) complex64; phi: (T, N) f32; Cx, W_in, W_out: (F, M, M)
-// complex64; all contiguous on one device. The caller has checked shapes,
-// types and devices, and that 1 <= N <= M <= 32, T >= 1 and F >= 1.
-// 2 <= M <= 8 runs the warp-per-bin kernel, the other M the block-per-bin
-// kernel.
+// X: (T, F, M) complex64; phi: (T, n_mix, N) f32; Cx, W_in, W_out:
+// (F, M, M) complex64; all contiguous on one device. The caller has checked
+// shapes, types and devices, and that 1 <= N <= M <= 32, T >= 1, F >= 1 and
+// that n_mix >= 1 divides F. 2 <= M <= 8 runs the warp-per-bin kernel, the
+// other M the block-per-bin kernel.
 int update_rows_launch(const void* X, const void* phi, const void* Cx,
                        const void* W_in, void* W_out, int T, int F, int M,
-                       int N, void* stream) {
+                       int N, int n_mix, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M >= 2 && M <= kMaxWarpM) {
     switch (M) {
-      case 2: return launch_warp<2>(X, phi, Cx, W_in, W_out, T, F, N, st);
-      case 3: return launch_warp<3>(X, phi, Cx, W_in, W_out, T, F, N, st);
-      case 4: return launch_warp<4>(X, phi, Cx, W_in, W_out, T, F, N, st);
-      case 5: return launch_warp<5>(X, phi, Cx, W_in, W_out, T, F, N, st);
-      case 6: return launch_warp<6>(X, phi, Cx, W_in, W_out, T, F, N, st);
-      case 7: return launch_warp<7>(X, phi, Cx, W_in, W_out, T, F, N, st);
-      default: return launch_warp<8>(X, phi, Cx, W_in, W_out, T, F, N, st);
+      case 2: return launch_warp<2>(X, phi, Cx, W_in, W_out, T, F, N, n_mix, st);
+      case 3: return launch_warp<3>(X, phi, Cx, W_in, W_out, T, F, N, n_mix, st);
+      case 4: return launch_warp<4>(X, phi, Cx, W_in, W_out, T, F, N, n_mix, st);
+      case 5: return launch_warp<5>(X, phi, Cx, W_in, W_out, T, F, N, n_mix, st);
+      case 6: return launch_warp<6>(X, phi, Cx, W_in, W_out, T, F, N, n_mix, st);
+      case 7: return launch_warp<7>(X, phi, Cx, W_in, W_out, T, F, N, n_mix, st);
+      default: return launch_warp<8>(X, phi, Cx, W_in, W_out, T, F, N, n_mix, st);
     }
   }
-  if (N <= 4) return launch<4>(X, phi, Cx, W_in, W_out, T, F, M, N, st);
-  if (N <= 8) return launch<8>(X, phi, Cx, W_in, W_out, T, F, M, N, st);
-  if (N <= 16) return launch<16>(X, phi, Cx, W_in, W_out, T, F, M, N, st);
-  return launch<32>(X, phi, Cx, W_in, W_out, T, F, M, N, st);
+  if (N <= 4) return launch<4>(X, phi, Cx, W_in, W_out, T, F, M, N, n_mix, st);
+  if (N <= 8) return launch<8>(X, phi, Cx, W_in, W_out, T, F, M, N, n_mix, st);
+  if (N <= 16) return launch<16>(X, phi, Cx, W_in, W_out, T, F, M, N, n_mix, st);
+  return launch<32>(X, phi, Cx, W_in, W_out, T, F, M, N, n_mix, st);
 }
 
 const char* update_rows_error_string(int code) {

@@ -15,9 +15,9 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.covariance import covariance, weighted_covariance_all
+from ..ops.covariance import covariance, weighted_covariance_mixtures
 from ..ops.linalg import align_eigvec_phase, clamp_pow2, eigh, gauss_solve, mat_h
-from ..ops.update_rows import ip_rows, update_rows
+from ..ops.update_rows import ip_rows, kernel_route, update_rows
 from ..ops.wcov_packed import pack_planes, wcov_packed
 from ..parallel.collectives import psum
 from ..utils.profiling import span
@@ -112,18 +112,12 @@ def epoch_covariances(X, W_hat, n_src: int, model: str, wcov: str = "f32",
     each one's phi weights its own bins in the f32 tier. ``group``,
     ``n_freq``, ``bin_mask``: bin sharding, as in
     :func:`mixture_activations`."""
-    T, BF, M = X.shape
-    N = n_src
-    phi = mixture_activations(demix(X, W_hat[:, :N, :]), model, n_mix, group, n_freq,
+    T = X.shape[0]
+    phi = mixture_activations(demix(X, W_hat[:, :n_src, :]), model, n_mix, group, n_freq,
                               bin_mask)
-    if n_mix == 1:
-        if xpack is not None:
-            return wcov_packed(xpack, phi[:, 0], T).to(X.dtype)
-        return weighted_covariance_all(X, phi[:, 0], wcov, chunk=chunk_frames)
-    Xm = X.reshape(T, n_mix, BF // n_mix, M)
-    Xw = Xm[None] * phi.permute(2, 0, 1)[..., None, None].to(X.real.dtype)
-    Vs = torch.einsum("ktbfm,tbfn->kbfmn", Xw, Xm.conj()) / T
-    return Vs.reshape(N, BF, M, M)
+    if n_mix == 1 and xpack is not None:
+        return wcov_packed(xpack, phi[:, 0], T).to(X.dtype)
+    return weighted_covariance_mixtures(X, phi, wcov, chunk_frames)
 
 
 def _epoch(X, W_hat, Cx, n_src: int, model: str, chunk_frames=None,
@@ -139,13 +133,14 @@ def _epoch(X, W_hat, Cx, n_src: int, model: str, chunk_frames=None,
     return ip_rows(W_hat, Vs, Cx, n_src)
 
 
-def _fused_epoch(X, W_hat, Cx, n_src: int, model: str):
+def _fused_epoch(X, W_hat, Cx, n_src: int, model: str, n_mix: int = 1):
     """One epoch through the fused update kernel: demix -> power -> phi in
-    plain ops, then :func:`update_rows` over all bins (the composition of
-    ``overiva_tpu/ops/pallas_epoch.py:11-17``). The f32 tier of
-    :func:`_epoch`; on a CUDA device X, W_hat and Cx must be complex64 and
-    contiguous. Returns the new W_hat."""
-    _, phi = activations_from_power(power(demix(X, W_hat[:, :n_src, :])), X.shape[1], model)
+    plain ops, as :func:`_epoch` has them, then :func:`update_rows` over
+    all bins (the composition of ``overiva_tpu/ops/pallas_epoch.py:11-17``),
+    each of the ``n_mix`` folded mixtures weighting its own bins. The f32
+    tier of :func:`_epoch`; on a CUDA device X, W_hat and Cx must be
+    complex64 and contiguous. Returns the new W_hat."""
+    phi = mixture_activations(demix(X, W_hat[:, :n_src, :]), model, n_mix)  # (T, B, N)
     return update_rows(phi, X, Cx, W_hat, n_src)
 
 
@@ -154,13 +149,24 @@ def overiva_iterations(X, W_hat, Cx, n_src: int, n_iter: int, model: str,
     """Run ``n_iter`` epochs. X: (T,F,M); W_hat, Cx: (F,M,M); F covers
     ``n_mix`` folded mixtures.
 
-    ``wcov="bf16pack"`` packs the bf16 planes of X once here (X is the
-    same every epoch) and each epoch's weighted covariances run the
-    packed kernel on them."""
+    Where :func:`~overiva_tpu_torch.ops.update_rows.kernel_route` holds (a
+    CUDA complex64 X of the exact-f32 tier), each epoch is
+    :func:`_fused_epoch`: one launch of the ``update_rows`` kernel after the
+    activations (``chunk_frames`` only bounds the eager weighted
+    temporary, which the kernel does not have). Every other run takes the
+    eager :func:`_epoch`. ``wcov="bf16pack"`` packs the bf16 planes of X
+    once here (X is the same every epoch) and each epoch's weighted
+    covariances run the packed kernel on them."""
+    fused = kernel_route(X.device.type, X.dtype, wcov, X.shape[2])
+    if fused:  # the kernel reads dense tensors
+        X, Cx, W_hat = X.contiguous(), Cx.contiguous(), W_hat.contiguous()
     xpack = pack_planes(X) if wcov == "bf16pack" else None
     for i in range(n_iter):
-        with span("family.epoch", index=i, bins=X.shape[1]):
-            W_hat = _epoch(X, W_hat, Cx, n_src, model, chunk_frames, wcov, xpack, n_mix)
+        with span("family.epoch", index=i, bins=X.shape[1], kernel=int(fused)):
+            if fused:
+                W_hat = _fused_epoch(X, W_hat, Cx, n_src, model, n_mix)
+            else:
+                W_hat = _epoch(X, W_hat, Cx, n_src, model, chunk_frames, wcov, xpack, n_mix)
     return W_hat
 
 

@@ -28,6 +28,7 @@ __all__ = [
     "covariance",
     "weighted_covariance_all",
     "weighted_covariance_chunked",
+    "weighted_covariance_mixtures",
     "weighted_covariance_tf",
 ]
 
@@ -92,6 +93,22 @@ def weighted_covariance_all(X, phi, wcov: str = "f32", chunk=None):
         raise ValueError(f"wcov must be one of {WCOV_MODES}, got {wcov!r}")
     Xw = X[None] * phi.t()[:, :, None, None].to(X.real.dtype)  # (K, T, F, M)
     return torch.einsum("ktfm,tfn->kfmn", Xw, X.conj()) / T
+
+
+def weighted_covariance_mixtures(X, phi, wcov: str = "f32", chunk=None):
+    """The weighted covariances of B mixtures folded into the bin axis
+    (``models/overiva.py::fold_mixtures``), each mixture's bins weighted by
+    its own phi. X: (T, B*F, M), phi: (T, B, K) -> (K, B*F, M, M). One
+    mixture is :func:`weighted_covariance_all` at ``wcov`` and ``chunk``;
+    more take the f32 tier (the batch forms have no ``wcov``)."""
+    if phi.shape[1] == 1:
+        return weighted_covariance_all(X, phi[:, 0], wcov, chunk=chunk)
+    T, BF, M = X.shape
+    n_mix, K = phi.shape[1], phi.shape[2]
+    Xm = X.reshape(T, n_mix, BF // n_mix, M)
+    Xw = Xm[None] * phi.permute(2, 0, 1)[..., None, None].to(X.real.dtype)
+    Vs = torch.einsum("ktbfm,tbfn->kbfmn", Xw, Xm.conj()) / T
+    return Vs.reshape(K, BF, M, M)
 
 
 def check_wcov(wcov):

@@ -15,6 +15,13 @@ orthogonal constraint J^H = solve((W1 Cx)[:, :N], (W1 Cx)[:, N:]).
   bin for larger M, chosen inside the launch) for CUDA tensors, the plain
   version for CPU tensors. On a CUDA tensor it launches the kernel or
   raises.
+- :func:`kernel_route` is the rule by which the IP epochs
+  (``models/overiva.py::overiva_iterations``) run the kernel: a CUDA
+  complex64 X of the exact-f32 tier, within the kernel's M.
+
+phi is (T, N) for one mixture, or (T, B, N) for B mixtures folded into the
+bin axis (``models/overiva.py::fold_mixtures``): bin f is weighted by the
+phi of mixture f // (F / B).
 
 Unlike the Pallas kernel, both carry the production guards of
 ``ops/linalg.py`` (dead pivots, ``clamp_pow2``, the ``quad_form``
@@ -27,12 +34,23 @@ from __future__ import annotations
 
 import torch
 
-from .covariance import weighted_covariance_all
+from .covariance import weighted_covariance_mixtures
 from .linalg import clamp_pow2, gauss_solve, mat_h, quad_form
 
-__all__ = ["MAX_M", "ip_rows", "update_rows", "update_rows_reference"]
+__all__ = ["MAX_M", "ip_rows", "kernel_route", "update_rows", "update_rows_reference"]
 
 MAX_M = 32  # the block-per-bin kernel: one thread per (m, n), M * M <= 1024
+# the wcov tiers whose weighted covariances are exact f32 products
+KERNEL_WCOV = ("f32", "f32x3")
+
+
+def kernel_route(device_type: str, dtype, wcov: str, M: int) -> bool:
+    """Whether an IP epoch over X of this device type, dtype and channel
+    count M, at weighted-covariance tier ``wcov``, runs the kernel: CUDA,
+    complex64, the exact-f32 tier, and 1 <= M <= :data:`MAX_M`. Everything
+    else (CPU, complex128, ``bf16``, ``bf16pack``) runs the eager epoch."""
+    return (device_type == "cuda" and dtype == torch.complex64
+            and str(wcov) in KERNEL_WCOV and 1 <= M <= MAX_M)
 
 
 def ip_rows(W_hat, Vs, Cx, n_src: int):
@@ -71,9 +89,10 @@ def ip_rows(W_hat, Vs, Cx, n_src: int):
 
 
 def update_rows_reference(phi, X, Cx, W, n_src: int):
-    """Plain PyTorch version of the kernel. phi: (T, N) real; X: (T, F, M);
-    Cx, W: (F, M, M). Returns the new W."""
-    return ip_rows(W, weighted_covariance_all(X, phi, "f32"), Cx, n_src)
+    """Plain PyTorch version of the kernel. phi: (T, N) or (T, B, N) real;
+    X: (T, F, M); Cx, W: (F, M, M). Returns the new W."""
+    Vs = weighted_covariance_mixtures(X, phi if phi.ndim == 3 else phi[:, None])
+    return ip_rows(W, Vs, Cx, n_src)
 
 
 def _launch(phi, X, Cx, W, n_src: int):
@@ -102,8 +121,12 @@ def _launch(phi, X, Cx, W, n_src: int):
     N = int(n_src)
     if not 1 <= N <= M:
         raise ValueError(f"need 1 <= n_src <= M = {M}, got {N}")
-    if phi.shape != (T, N):
-        raise ValueError(f"phi must be (T={T}, N={N}), got {tuple(phi.shape)}")
+    n_mix = phi.shape[1] if phi.ndim == 3 else 1
+    if phi.shape not in ((T, N), (T, n_mix, N)) or n_mix < 1 or F % n_mix:
+        raise ValueError(
+            f"phi must be (T={T}, N={N}) or (T={T}, B, N={N}) with B dividing "
+            f"F={F}, got {tuple(phi.shape)}"
+        )
     if min(T, F) < 1 or F > 2**31 - 1:
         raise ValueError(f"unsupported shape T={T} F={F}")
     devices = {name: t.device for name, t in tensors.items()}
@@ -118,7 +141,7 @@ def _launch(phi, X, Cx, W, n_src: int):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         err = lib.update_rows_launch(
             X.data_ptr(), phi.data_ptr(), Cx.data_ptr(), W.data_ptr(),
-            out.data_ptr(), T, F, M, N, stream,
+            out.data_ptr(), T, F, M, N, n_mix, stream,
         )
     if err != 0:
         msg = lib.update_rows_error_string(err).decode()
@@ -128,8 +151,8 @@ def _launch(phi, X, Cx, W, n_src: int):
 
 
 def update_rows(phi, X, Cx, W, n_src: int):
-    """The fused per-bin update: the new W (F, M, M) from phi (T, N), X
-    (T, F, M), Cx and W (F, M, M).
+    """The fused per-bin update: the new W (F, M, M) from phi (T, N) or
+    (T, B, N) of B folded mixtures, X (T, F, M), Cx and W (F, M, M).
 
     CPU tensors take :func:`update_rows_reference`; CUDA tensors launch the
     kernel (complex64 and contiguous only) or raise.

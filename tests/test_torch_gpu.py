@@ -205,6 +205,128 @@ def test_update_rows_kernel_knife_edge_decisions(cuda, M, N):
     assert (W_k[healthy] - W_p[healthy]).abs().max().item() <= 1e-4 * W_p.abs().max().item()
 
 
+@pytest.mark.parametrize("N", [1, 2, 3])
+def test_update_rows_kernel_knife_edge_rank1_at_m3(cuda, N):
+    """At M=3 the keep-row test of a rank-1 bin sits at its threshold: the
+    quadratic form is 1-100 times 4 eps of its terms (at M=4 and 8 it is
+    well under 1, and every implementation keeps the row), so rounding
+    decides, and the kernel, the plain version on the card, the plain
+    version on the CPU and complex128 each keep a different set of those
+    rows. How far that goes: only the four rank-1 bins differ; the silent
+    bins keep their rows and zero their OC exactly as the plain version
+    does; the healthy bins agree at 1e-4 of their own scale; all finite."""
+    M = 3
+    phi, X, Cx, W = _knife_state(M, N, cuda)
+    W_k = tur.update_rows(phi, X, Cx, W, N)
+    W_p = tur.update_rows_reference(phi, X, Cx, W, N)
+    assert torch.isfinite(W_k).all()
+    kept_k = (W_k[:, :N] == W[:, :N]).all(dim=-1)
+    kept_p = (W_p[:, :N] == W[:, :N]).all(dim=-1)
+    zero_k = (W_k[:, N:, :N] == 0).flatten(1).all(dim=1)
+    zero_p = (W_p[:, N:, :N] == 0).flatten(1).all(dim=1)
+    rank1 = torch.zeros(X.shape[1], dtype=torch.bool, device=cuda)
+    rank1[4:8] = True
+    assert torch.equal(kept_k[~rank1], kept_p[~rank1])
+    assert torch.equal(zero_k[~rank1], zero_p[~rank1])
+    assert kept_k[:4].all()
+    if N < M:
+        assert zero_k[:4].all()
+    healthy = slice(8, None)
+    err = (W_k[healthy] - W_p[healthy]).abs().max().item()
+    assert err <= 1e-4 * W_p[healthy].abs().max().item()
+
+
+def _folded_state(seed, B, M, N, F_mix, T, device):
+    """B random mixtures of F_mix bins each, folded into the bin axis
+    (``fold_mixtures``), phi (T, B, N), W and Cx prepared as
+    ``api.overiva_batch`` prepares them."""
+    rng = np.random.default_rng(seed)
+    Xb = rng.standard_normal((B, T, F_mix, M)) + 1j * rng.standard_normal((B, T, F_mix, M))
+    X = core.fold_mixtures(torch.from_numpy(Xb.astype(np.complex64)).to(device)).contiguous()
+    phi = torch.from_numpy((rng.random((T, B, N)) + 0.1).astype(np.float32)).to(device)
+    W, Cx = core.prepare(X, N, False)
+    return phi, X, Cx.contiguous(), W.contiguous()
+
+
+def _per_mixture(phi, X, Cx, W, N):
+    """The kernel on each mixture of a folded state alone, rows stacked."""
+    B = phi.shape[1]
+    F_mix = X.shape[1] // B
+    parts = []
+    for b in range(B):
+        sl = slice(b * F_mix, (b + 1) * F_mix)
+        parts.append(tur.update_rows(phi[:, b].contiguous(), X[:, sl].contiguous(),
+                                     Cx[sl].contiguous(), W[sl].contiguous(), N))
+    return torch.cat(parts)
+
+
+@pytest.mark.parametrize(
+    "B,M,N,F_mix,T",
+    [
+        # the batch cell's group (8 rooms of 2049 bins, 56 frames) and a
+        # pair: 2049 is not a multiple of the 8 bins of a block, so blocks
+        # straddle two mixtures
+        (8, 8, 3, 2049, 56), (2, 8, 3, 2049, 128), (2, 3, 2, 129, 77), (8, 3, 3, 13, 40),
+        # mixtures narrower than a block: one block spans up to 8 of them
+        (3, 5, 2, 3, 33), (8, 8, 3, 1, 20), (8, 2, 1, 2, 17),
+        # the block-per-bin kernel (9 <= M <= 32)
+        (2, 12, 4, 5, 40), (3, 16, 3, 2, 33),
+    ],
+)
+def test_update_rows_kernel_folded_matches_plain(cuda, B, M, N, F_mix, T):
+    """phi (T, B, N): each bin weighted by its own mixture's phi. Against the
+    plain folded version at the 1e-4 gate of the one-mixture test, one
+    launch a call, and each mixture's bins equal to the kernel run on that
+    mixture alone, bit for bit (the same chain on the same values)."""
+    phi, X, Cx, W = _folded_state(B * 100 + M + F_mix, B, M, N, F_mix, T, cuda)
+    before = tur.update_rows.launches
+    W_k = tur.update_rows(phi, X, Cx, W, N)
+    torch.cuda.synchronize()
+    assert tur.update_rows.launches == before + 1
+    W_p = tur.update_rows_reference(phi, X, Cx, W, N)
+    assert torch.isfinite(W_k).all()
+    assert (W_k - W_p).abs().max().item() <= 1e-4 * W_p.abs().max().item()
+    assert torch.equal(W_k, _per_mixture(phi, X, Cx, W, N))
+
+
+@pytest.mark.parametrize("B,M,N", [(2, 8, 3), (8, 3, 2), (2, 12, 3)])
+def test_update_rows_kernel_folded_knife_edge(cuda, B, M, N):
+    """Silent and rank-1 bins on both sides of a mixture boundary inside one
+    block: the folded kernel stays finite, keeps the previous rows of the
+    silent bins and zeroes their OC as the plain folded version does, and
+    runs every bin, the rank-1 ones included, as on its mixture alone, bit
+    for bit. (A rank-1 bin's keep-row decision rests on rounding noise, so
+    it is held to the one-mixture kernel, not to the plain version.)"""
+    rng = np.random.default_rng(B * 10 + M)
+    T, F_mix = 40, 13
+    Xb = rng.standard_normal((B, T, F_mix, M)) + 1j * rng.standard_normal((B, T, F_mix, M))
+    Xb[0, :, -3:] = 0  # the last bins of mixture 0 are silent
+    Xb[1, :, :2] = 0  # the first bins of mixture 1 are silent
+    Xb[1, :, 2:5] = rng.standard_normal((T, 3, 1)) * rng.standard_normal((1, 3, M))  # rank 1
+    X = core.fold_mixtures(torch.from_numpy(Xb.astype(np.complex64)).to(cuda)).contiguous()
+    phi = torch.from_numpy((rng.random((T, B, N)) + 0.1).astype(np.float32)).to(cuda)
+    W, Cx = core.prepare(X, N, False)
+    W, Cx = W.contiguous(), Cx.contiguous()
+    W_k = tur.update_rows(phi, X, Cx, W, N)
+    W_p = tur.update_rows_reference(phi, X, Cx, W, N)
+    assert torch.isfinite(W_k).all()
+    healthy = torch.ones(X.shape[1], dtype=torch.bool, device=cuda)
+    healthy[F_mix - 3 : F_mix + 5] = False
+    plain = healthy.clone()
+    plain[F_mix - 3 : F_mix + 2] = True  # the silent bins
+    kept_k = (W_k[:, :N] == W[:, :N]).all(dim=-1)
+    assert torch.equal(kept_k[plain], (W_p[:, :N] == W[:, :N]).all(dim=-1)[plain])
+    silent = [F_mix - 3, F_mix - 2, F_mix - 1, F_mix, F_mix + 1]
+    assert kept_k[silent].all()  # silent bins: the previous rows, exactly
+    zero_k = (W_k[:, N:, :N] == 0).flatten(1).all(dim=1)
+    assert torch.equal(zero_k[plain], (W_p[:, N:, :N] == 0).flatten(1).all(dim=1)[plain])
+    if N < M:
+        assert zero_k[silent].all()  # dead OC solve: J = 0
+    err = (W_k[healthy] - W_p[healthy]).abs().max().item()
+    assert err <= 1e-4 * W_p.abs().max().item()
+    assert torch.equal(W_k, _per_mixture(phi, X, Cx, W, N))
+
+
 def test_update_rows_refuses_bad_inputs(cuda):
     phi, X, Cx, W = _update_state(2, 4, 2, 16, 8, cuda)
     with pytest.raises(ValueError, match="complex64 only"):
@@ -219,6 +341,8 @@ def test_update_rows_refuses_bad_inputs(cuda):
         tur.update_rows(phi, X33, big, big, 2)
     with pytest.raises(ValueError, match="phi must be"):
         tur.update_rows(phi[:, :1], X, Cx, W, 2)
+    with pytest.raises(ValueError, match="B dividing"):  # 3 mixtures do not split 16 bins
+        tur.update_rows(torch.ones((8, 3, 2), device=cuda), X, Cx, W, 2)
 
 
 def test_fused_epoch_on_card_matches_cpu(cuda):
@@ -586,8 +710,9 @@ def test_separator_on_card_matches_cpu(cuda, algo, n_src, kw, tol):
 
 def test_separator_bf16pack_launches(cuda):
     """wcov_packed runs once an epoch for each clip: n_iter for one clip,
-    n_iter x B for a bf16pack group of B (clip by clip); never under f32,
-    and update_rows never."""
+    n_iter x B for a bf16pack group of B (clip by clip); never under f32.
+    update_rows never runs under bf16pack, and once an epoch for an f32
+    group (folded into one run)."""
     from overiva_tpu_torch.serving import Separator
 
     x = _serve_clip(25)
@@ -602,7 +727,89 @@ def test_separator_bf16pack_launches(cuda):
     assert np.isfinite(y).all() and sep.n_buckets() == 2
     Separator("overiva", **kw).separate_batch([x, x[:3700]])
     Separator("overiva-ip2", wcov="bf16pack", **kw).separate(x)
-    assert (twp.wcov_packed.launches, tur.update_rows.launches) == (counts[0] + 25, counts[1])
+    assert (twp.wcov_packed.launches, tur.update_rows.launches) == (counts[0] + 25,
+                                                                    counts[1] + 5)
+
+
+def _room_clips(seed, n_clips, n=96_000, M=8, N=3):
+    """``n_clips`` 6 s clips at 16 kHz: N gated Laplacian sources through
+    random 16-tap responses with a dominant direct path at M mics, 30 dB of
+    white noise. Returns [(mix (n, M), the images at mic 0 (N, n))]."""
+    rng = np.random.default_rng(seed)
+    clips = []
+    for _ in range(n_clips):
+        gate = np.where(rng.random((N, n // 4000 + 1)) < 0.5, 1.0, 0.1).repeat(4000, axis=1)
+        src = rng.laplace(size=(N, n)) * gate[:, :n]
+        H = rng.standard_normal((M, N, 16)) * np.exp(-np.arange(16) / 4.0)
+        H[:, :, 0] += 3.0 * np.sign(H[:, :, 0])
+        images = np.stack([[np.convolve(src[k], H[m, k])[:n] for m in range(M)]
+                           for k in range(N)])  # (N, M, n)
+        mix = images.sum(axis=0).T
+        noise = rng.standard_normal(mix.shape)
+        mix = mix + noise * np.linalg.norm(mix) / np.linalg.norm(noise) * 10 ** (-30 / 20)
+        clips.append((mix, images[:, 0]))
+    return clips
+
+
+def test_separator_overiva_m8n3_runs_update_rows(cuda):
+    """The benchmark's configuration (``Separator("overiva", n_src=3,
+    nfft=4096, hop=2048, n_iter=30, init_eig=True)``, M=8, complex64) on the
+    card: ``separate`` and ``separate_batch`` launch ``update_rows`` once an
+    epoch (30 a request, 30 a group of three), and every output scores
+    within 0.1 dB SDR and SIR of the same Separator at complex128 on the
+    CPU."""
+    from overiva_tpu_torch.metrics import bss_eval_sources
+    from overiva_tpu_torch.serving import Separator
+
+    args = dict(n_src=3, nfft=4096, hop=2048, n_iter=30, model="laplace", init_eig=True)
+    clips = _room_clips(31, 3)
+    sep = Separator("overiva", device=cuda, **args)
+    before = tur.update_rows.launches
+    y_one = sep.separate(clips[0][0])
+    assert tur.update_rows.launches == before + 30
+    ys = sep.separate_batch([mix for mix, _ in clips])
+    assert tur.update_rows.launches == before + 60
+    cpu = Separator("overiva", device="cpu", dtype=np.complex128, **args)
+    for i, (y, (mix, refs)) in enumerate(zip([y_one, *ys], [clips[0], *clips])):
+        want = cpu.separate(mix)
+        assert np.isfinite(y).all() and y.shape == want.shape
+        sdr, sir, _, _ = bss_eval_sources(refs, np.asarray(y, np.float64).T)
+        sdr_w, sir_w, _, _ = bss_eval_sources(refs, want.T)
+        assert np.abs(sdr - sdr_w).max() < 0.1 and np.abs(sir - sir_w).max() < 0.1, (
+            i, sdr, sdr_w, sir, sir_w)
+
+
+@pytest.mark.parametrize("n_mix", [1, 8])
+def test_ip_epoch_launches_under_30(cuda, n_mix):
+    """A routed IP epoch at the benchmark's shapes (M=8, N=3, F=2049 a
+    mixture, 56 frames; one clip and a folded group of 8) makes fewer than
+    30 launches and 30 device kernels, one of them ``update_rows``, and
+    its ``family.epoch`` span says ``kernel=1``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from overiva_tpu_torch.utils.profiling import tracing
+
+    rng = np.random.default_rng(n_mix)
+    T, F, M, N, n_ep = 56, 2049 * n_mix, 8, 3, 4
+    X = rng.standard_normal((T, F, M)) + 1j * rng.standard_normal((T, F, M))
+    X = torch.from_numpy(X.astype(np.complex64)).to(cuda)
+    W, Cx = core.prepare(X, N, True)
+    core.overiva_iterations(X, W, Cx, N, 1, "laplace", n_mix=n_mix)  # build, warm
+    torch.cuda.synchronize()
+    with tracing() as tr, profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        core.overiva_iterations(X, W, Cx, N, n_ep, "laplace", n_mix=n_mix)
+        torch.cuda.synchronize()
+    events = prof.events()
+    launches = [e for e in events
+                if e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset", "family."))]
+    assert len(launches) < 30 * n_ep and len(kernels) < 30 * n_ep, (len(launches), len(kernels))
+    assert sum("update_rows" in e.name for e in kernels) == n_ep
+    epochs = [s for s in tr.spans if s["name"] == "family.epoch"]
+    assert len(epochs) == n_ep and all(s["counts"]["kernel"] == 1 for s in epochs)
 
 
 def test_separator_never_syncs_the_host(cuda):
@@ -767,13 +974,24 @@ def test_sweep_batched_matches_serial_on_card(cuda, tmp_path):
 
 def test_bench_twin_on_card(cuda):
     """The bench twin's rows at its small shape on the card: every key,
-    every value finite, no row error, and ``wcov_packed`` launched by the
-    two bf16pack rows alone, (1 warm-up + 1 timed) x n_iter each."""
+    every value finite, no row error, ``wcov_packed`` launched by the
+    two bf16pack rows alone, (1 warm-up + 1 timed) x n_iter each, and
+    ``update_rows`` once for each IP epoch of the complex64 f32 and f32x3
+    rows, as many as their spans say ``kernel=1``."""
     from overiva_tpu_torch.examples import bench
+    from overiva_tpu_torch.utils.profiling import tracing
 
     twp.wcov_packed.launches = tur.update_rows.launches = 0
-    extra = bench.run(cuda, bench.TINY, repeats=1)["extra"]
+    with tracing() as tr:
+        extra = bench.run(cuda, bench.TINY, repeats=1)["extra"]
     assert set(extra) == set(bench.EXTRA_KEYS) | {"device"}, extra.get("bench_errors")
     assert all(np.isfinite(extra[k]) for k in bench.EXTRA_KEYS)
     assert twp.wcov_packed.launches == 2 * 2 * bench.TINY.n_iter
-    assert tur.update_rows.launches == 0
+    # (1 warm-up + 1 timed) x the f32 and f32x3 IP epochs: the headline, f32x3,
+    # T512, T512 f32x3 and batch16 rows (n_iter each), the marginal row
+    # (n_iter + 200), the roofline row (n_iter + 100), two Separator calls of
+    # one clip and two of 8 clips, which span two buckets at this shape (two
+    # groups a call; one at the full shape)
+    n = bench.TINY.n_iter
+    assert tur.update_rows.launches == 2 * (5 * n + (n + 200) + (n + 100) + 2 * n + 2 * 2 * n)
+    assert tr.table()["family.epoch"]["counts"]["kernel"] == tur.update_rows.launches

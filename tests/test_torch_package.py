@@ -304,7 +304,8 @@ def test_ptxas_summary():
 
 def test_chip_smoke_bounds():
     """The least times ``chip_smoke.py`` reports beside each kernel, from
-    the headline shapes: both are bound by bytes. update_rows' covariances
+    the headline shapes and the benchmark cells' (one clip, and 8 rooms
+    folded): all are bound by bytes. update_rows' covariances
     share x x^H across sources over the Hermitian triangle: 576 flops per
     frame and bin at M=8, N=3."""
     sys.path.insert(0, str(REPO))
@@ -316,6 +317,11 @@ def test_chip_smoke_bounds():
     assert by == "bytes" and 0.00594 < ms < 0.00596
     ms, by = chip_smoke.update_rows_bound(8, 3, 2049, 512)
     assert by == "bytes" and 0.02097 < ms < 0.02100
+    # the benchmark's cells: one 56-frame clip, and a group of 8 rooms folded
+    ms, by = chip_smoke.update_rows_bound(8, 3, 2049, 56)
+    assert by == "bytes" and 0.00312 < ms < 0.00314
+    ms, by = chip_smoke.update_rows_bound(8, 3, 8 * 2049, 56, 8)
+    assert by == "bytes" and 0.02504 < ms < 0.02506
     ms, by = chip_smoke.wcov_bound(3, 2049, 8, 128)
     assert by == "bytes" and 0.0034 < ms < 0.0035
 

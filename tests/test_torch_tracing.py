@@ -80,7 +80,9 @@ def test_span_tree(sep, clips, how):
     assert by_name["serve.upload"] == [{"bytes": sum(x.nbytes for x in sent)}]
     assert by_name["serve.analysis"] == [{"frames": B * t_bucket, "bins": B * F}]
     assert by_name["family.start"] == [{"mats": B * F}]
-    assert by_name["family.epoch"] == [{"index": i, "bins": B * F} for i in range(N_ITER)]
+    # kernel: whether the epoch ran the update_rows kernel (never on the CPU)
+    assert by_name["family.epoch"] == [{"index": i, "bins": B * F, "kernel": 0}
+                                       for i in range(N_ITER)]
     assert by_name["api.proj_back"] == [{"bins": B * F}]
     assert by_name["serve.synthesis"] == [{"frames": B * t_bucket}]
     # separate downloads the clip's span, separate_batch the group's whole
@@ -102,7 +104,9 @@ def test_family_spans(algo, init_eig, mats):
         run_family(X, N_SRC, N_ITER, "laplace", algo, init_eig=init_eig)
     assert [s["name"] for s in tr.spans] == ["family.start"] + ["family.epoch"] * N_ITER
     assert tr.spans[0]["counts"] == {"mats": F if mats else 0}
-    assert [s["counts"] for s in tr.spans[1:]] == [{"index": i, "bins": F}
+    # the IP epochs say whether they ran the update_rows kernel (never on the CPU)
+    routed = {"kernel": 0} if algo == "ip" else {}
+    assert [s["counts"] for s in tr.spans[1:]] == [{"index": i, "bins": F, **routed}
                                                    for i in range(N_ITER)]
 
 

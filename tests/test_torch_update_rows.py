@@ -10,7 +10,11 @@ against the JAX package on the CPU.
 - Knife-edge bins (silent, rank-1): finite, previous rows kept exactly
   where the eager epoch keeps them, and the same decisions as the JAX
   package's production ``_epoch``.
-- ``_fused_epoch`` iterated against ``_epoch`` at complex128.
+- ``_fused_epoch`` iterated against ``_epoch`` at complex128, for one
+  mixture and for mixtures folded into the bin axis (phi (T, B, N)).
+- The rule by which ``overiva_iterations`` runs the kernel
+  (``kernel_route``), and ``overiva_iterations`` on the CPU: the eager
+  epochs bit for bit, and the routed epochs too where the rule is forced.
 
 The CUDA kernel against the plain version is in tests/test_torch_gpu.py.
 """
@@ -73,8 +77,11 @@ def test_update_rows_matches_pallas_interpret(M, N):
     assert np.abs(Wt.numpy() - Wref).max() < 1e-5 * np.abs(Wref).max()
 
 
-def _state(M, N, dtype, seed, T=40, F=9):
+def _state(M, N, dtype, seed, T=40, F=9, n_mix=1):
+    """X (T, n_mix * F, M): ``n_mix`` mixtures of F bins (9, not a multiple
+    of the kernel's 8 bins a block) folded into the bin axis."""
     rng = np.random.default_rng(seed)
+    F = F * n_mix
     X = rng.standard_normal((T, F, M)) + 1j * rng.standard_normal((T, F, M))
     X = torch.from_numpy(X).to(dtype)
     W0 = rng.standard_normal((F, N, M)) + 1j * rng.standard_normal((F, N, M))
@@ -109,14 +116,32 @@ def _epoch_loop_before_refactor(X, W_hat, Cx, n_src, model):
     return W
 
 
+@pytest.mark.parametrize("n_mix", [1, 2, 3])
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
 @pytest.mark.parametrize("M,N", [(2, 2), (5, 2), (8, 3)])
-def test_reference_is_the_eager_epoch_bit_for_bit(M, N, dtype):
-    X, W, Cx = _state(M, N, dtype, seed=M * 10 + N)
-    _, phi = activations_from_power(power(tcore.demix(X, W[:, :N, :])), X.shape[1], "laplace")
-    W_epoch = tcore._epoch(X, W, Cx, N, "laplace")
+def test_reference_is_the_eager_epoch_bit_for_bit(M, N, dtype, n_mix):
+    """phi (T, N), or (T, B, N) of B folded mixtures: the plain version is
+    the eager epoch's covariances (``epoch_covariances``) and ``ip_rows``.
+    Folded, each mixture's rows are those of the mixture run alone."""
+    X, W, Cx = _state(M, N, dtype, seed=M * 10 + N, n_mix=n_mix)
+    W_epoch = tcore._epoch(X, W, Cx, N, "laplace", n_mix=n_mix)
+    if n_mix == 1:
+        _, phi = activations_from_power(power(tcore.demix(X, W[:, :N, :])), X.shape[1],
+                                        "laplace")
+        assert torch.equal(tur.update_rows_reference(phi, X, Cx, W, N), W_epoch)
+        assert torch.equal(_epoch_loop_before_refactor(X, W, Cx, N, "laplace"), W_epoch)
+        return
+    phi = tcore.mixture_activations(tcore.demix(X, W[:, :N, :]), "laplace", n_mix)
+    assert phi.shape == (X.shape[0], n_mix, N)
+    Vs = tcore.epoch_covariances(X, W, N, "laplace", n_mix=n_mix)
     assert torch.equal(tur.update_rows_reference(phi, X, Cx, W, N), W_epoch)
-    assert torch.equal(_epoch_loop_before_refactor(X, W, Cx, N, "laplace"), W_epoch)
+    assert torch.equal(tur.ip_rows(W, Vs, Cx, N), W_epoch)
+    F = X.shape[1] // n_mix
+    for b in range(n_mix):
+        sl = slice(b * F, (b + 1) * F)
+        alone = tur.update_rows_reference(phi[:, b], X[:, sl], Cx[sl], W[sl], N)
+        tol = 1e-5 if dtype == torch.complex64 else 1e-12
+        assert (W_epoch[sl] - alone).abs().max().item() <= tol * alone.abs().max().item()
 
 
 def _knife_edge(seed, M=5, N=2, T=32, F=12):
@@ -158,17 +183,87 @@ def test_knife_edge_bins_keep_rows_like_the_eager_epoch(M, N):
     np.testing.assert_array_equal(kept, _kept(Wj, W.numpy(), N))
 
 
-def test_fused_epochs_follow_the_eager_epochs():
-    """8 epochs through _fused_epoch against 8 through _epoch, complex128."""
+@pytest.mark.parametrize("n_mix", [1, 2, 3])
+def test_fused_epochs_follow_the_eager_epochs(n_mix):
+    """8 epochs through _fused_epoch against 8 through _epoch, complex128;
+    with n_mix > 1 the mixtures (65 bins each) are folded into the bin axis
+    and each weights its own bins."""
     rng = np.random.default_rng(64)
-    T, F, M, N = 64, 65, 5, 2
+    T, F, M, N = 64, 65 * n_mix, 5, 2
     X = torch.from_numpy(rng.standard_normal((T, F, M)) + 1j * rng.standard_normal((T, F, M)))
     W0, Cx = tcore.prepare(X, N, False)
     Wf, We = W0, W0
     for _ in range(8):
-        Wf = tcore._fused_epoch(X, Wf, Cx, N, "laplace")
-        We = tcore._epoch(X, We, Cx, N, "laplace")
+        Wf = tcore._fused_epoch(X, Wf, Cx, N, "laplace", n_mix)
+        We = tcore._epoch(X, We, Cx, N, "laplace", n_mix=n_mix)
     np.testing.assert_allclose(Wf.numpy(), We.numpy(), rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize(
+    "device_type,dtype,wcov,M,want",
+    [
+        ("cuda", torch.complex64, "f32", 8, True),
+        ("cuda", torch.complex64, "f32x3", 8, True),
+        ("cuda", torch.complex64, "f32", 1, True),
+        ("cuda", torch.complex64, "f32", tur.MAX_M, True),
+        ("cuda", torch.complex64, "f32", tur.MAX_M + 1, False),
+        ("cpu", torch.complex64, "f32", 8, False),
+        ("cuda", torch.complex128, "f32", 8, False),  # acc="f32x2", dtype=complex128
+        ("cuda", torch.complex64, "bf16", 8, False),
+        ("cuda", torch.complex64, "bf16pack", 8, False),
+        ("meta", torch.complex64, "f32", 8, False),
+    ],
+)
+def test_kernel_route(device_type, dtype, wcov, M, want):
+    """The kernel runs the IP epochs of a CUDA complex64 X of the exact-f32
+    tier within its M; everything else stays on the eager epoch."""
+    assert tur.kernel_route(device_type, dtype, wcov, M) is want
+
+
+def _eager_epochs(X, W, Cx, N, n_iter, wcov, n_mix):
+    for _ in range(n_iter):
+        W = tcore._epoch(X, W, Cx, N, "laplace", None, wcov, None, n_mix)
+    return W
+
+
+@pytest.mark.parametrize("wcov", ["f32", "f32x3", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("n_mix", [1, 2])
+def test_overiva_iterations_on_cpu_are_the_eager_epochs(n_mix, dtype, wcov):
+    """On the CPU the route never engages: ``overiva_iterations`` is the
+    loop of eager epochs bit for bit, and each epoch's span says
+    ``kernel=0``."""
+    from overiva_tpu_torch.utils.profiling import tracing
+
+    X, W, Cx = _state(5, 2, dtype, seed=11, n_mix=n_mix)
+    with tracing() as tr:
+        got = tcore.overiva_iterations(X, W, Cx, 2, 3, "laplace", wcov=wcov, n_mix=n_mix)
+    assert torch.equal(got, _eager_epochs(X, W, Cx, 2, 3, wcov, n_mix))
+    assert [s["counts"]["kernel"] for s in tr.spans] == [0, 0, 0]
+
+
+@pytest.mark.parametrize("n_mix", [1, 3])
+def test_forced_route_runs_the_fused_epochs(monkeypatch, n_mix):
+    """With the rule forced on the CPU, ``overiva_iterations`` runs
+    ``_fused_epoch`` (the plain version of the kernel) on the same phi, so
+    on strided inputs it still gives the eager epochs bit for bit, and each
+    epoch's span says ``kernel=1``."""
+    from overiva_tpu_torch.utils.profiling import tracing
+
+    X, W, Cx = _state(5, 2, torch.complex64, seed=12, n_mix=n_mix)
+    Xs = X.transpose(0, 1).contiguous().transpose(0, 1)  # same values, strided
+    assert not Xs.is_contiguous()
+    monkeypatch.setattr(tcore, "kernel_route", lambda *a: True)
+    calls = []
+    fused = tcore._fused_epoch
+    monkeypatch.setattr(tcore, "_fused_epoch",
+                        lambda X, *a: calls.append(X.is_contiguous()) or fused(X, *a))
+    with tracing() as tr:
+        got = tcore.overiva_iterations(Xs, W, Cx, 2, 4, "laplace", chunk_frames=8,
+                                       n_mix=n_mix)
+    assert calls == [True] * 4  # made contiguous once, before the loop
+    assert torch.equal(got, _eager_epochs(X, W, Cx, 2, 4, "f32", n_mix))
+    assert [s["counts"]["kernel"] for s in tr.spans] == [1, 1, 1, 1]
 
 
 def test_launch_validation():
@@ -184,6 +279,9 @@ def test_launch_validation():
         tur._launch(phi.double(), X, W, W, N)
     with pytest.raises(ValueError, match="phi must be"):
         tur._launch(torch.ones((T, N + 1)), X, W, W, N)
+    for B in (2, 0):  # folded phi: B mixtures must split the F = 3 bins
+        with pytest.raises(ValueError, match="B dividing"):
+            tur._launch(torch.ones((T, B, N)), X, W, W, N)
     with pytest.raises(ValueError, match="M <= 32"):
         big = torch.zeros((F, 33, 33), dtype=torch.complex64)
         tur._launch(phi, torch.zeros((T, F, 33), dtype=torch.complex64), big, big, N)
