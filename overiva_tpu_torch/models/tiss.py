@@ -16,6 +16,9 @@ Per epoch:
 ``n_src < M`` adds the phi = 1 background outputs, as OverIVA-ISS. At
 taps = 0 an epoch is the ISS epoch exactly. Folded mixtures (``n_mix``,
 ``models/overiva.py::fold_mixtures``) each get their own activations.
+Each epoch is a ``family.epoch`` span (``index``, ``bins``, ``taps`` =
+MK), its tap steps a ``tiss.taps`` span (``steps`` = MK, ``bins``,
+``frames``, ``outputs`` = M).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.wpe import delayed_taps
+from ..utils.profiling import span
 from .auxiva_iss import iss_phi, iss_steps
 from .overiva import demix
 
@@ -78,7 +82,9 @@ def _tiss_epoch(Xt, P, Y, model: str, n_chan: int, n_src=None, n_mix: int = 1, g
     phi = iss_phi(Y, model, n_src, n_mix, group, n_freq, bin_mask)
     P, Y = iss_steps(P, Y, phi, n_mix)
     if Xt.shape[2] > n_chan:
-        P, Y = tap_steps(P, Y, Xt[:, :, n_chan:], phi, n_mix)
+        T, BF, M = Y.shape
+        with span("tiss.taps", steps=Xt.shape[2] - n_chan, bins=BF, frames=T, outputs=M):
+            P, Y = tap_steps(P, Y, Xt[:, :, n_chan:], phi, n_mix)
     return P, Y
 
 
@@ -90,6 +96,7 @@ def tiss_iterations(Xt, P, n_iter: int, model: str, n_chan: int, n_src=None, Y=N
     ``Y[:, :, :n_src]``."""
     if Y is None:
         Y = demix(Xt, P)
-    for _ in range(n_iter):
-        P, Y = _tiss_epoch(Xt, P, Y, model, n_chan, n_src, n_mix)
+    for i in range(n_iter):
+        with span("family.epoch", index=i, bins=Xt.shape[1], taps=Xt.shape[2] - n_chan):
+            P, Y = _tiss_epoch(Xt, P, Y, model, n_chan, n_src, n_mix)
     return P, Y

@@ -179,10 +179,12 @@ def _spectral(X, n_src, n_iter, model, branch, taps, delay, warm_iter, wcov, n_m
         w = _five.five_iterations(Xw, _five.five_init(Xw), n_iter, model, n_mix)
         Y = _five.five_demix(Xw, w)[:, :, None]
     elif branch in ("tiss", "tip"):
-        Xt = _tiss.augment_taps(X, taps, delay)
-        P = _tiss.augmented_eye(Xt, M)
+        with span("family.start", mats=0):
+            Xt = _tiss.augment_taps(X, taps, delay)
+            P = _tiss.augmented_eye(Xt, M)
+            Y = demix(Xt, P) if branch == "tiss" else None
         if branch == "tiss":
-            _, Y = _tiss.tiss_iterations(Xt, P, n_iter, model, M, N, n_mix=n_mix)
+            _, Y = _tiss.tiss_iterations(Xt, P, n_iter, model, M, N, Y=Y, n_mix=n_mix)
         else:
             if warm_iter > 0 and taps > 0:  # api.tip's built-in warm start
                 P, _ = _tiss.tiss_iterations(Xt, P, warm_iter, model, M, N, n_mix=n_mix)

@@ -11,14 +11,14 @@ an XLA profile. ``ConvergenceRecorder`` scores with the port's copies of
 the oracle's synthesis and of bss_eval.
 
 **Spans.** The serving tier, the API and the epoch loops mark their stages
-with :func:`span` (``serve.*``, ``api.*``, ``family.*``, with counts such
-as bytes, frames, bins). Tracing is off unless a :func:`tracing` block is
-open: ``span`` then returns one shared no-op context, takes no time stamp
-and enters no profiler annotation. Inside the block each span is kept in
-the block's :class:`Trace` and entered as a ``torch.profiler``
-annotation, so a running profiler names its events, and the device's idle
-gaps, after the stage. Spans of one thread nest; run one traced caller at
-a time.
+with :func:`span` (``serve.*``, ``api.*``, ``family.*``, ``tiss.*``, with
+counts such as bytes, frames, bins). Tracing is off unless a
+:func:`tracing` block is open: ``span`` then returns one shared no-op
+context, takes no time stamp and enters no profiler annotation. Inside
+the block each span is kept in the block's :class:`Trace` and entered as
+a ``torch.profiler`` annotation, so a running profiler names its events,
+and the device's idle gaps, after the stage. Spans of one thread nest;
+run one traced caller at a time.
 
     >>> with tracing() as tr:
     ...     sep.separate(x)

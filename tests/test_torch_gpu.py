@@ -6,7 +6,9 @@ and joint families, the streaming classes and the clip-serving
 blocks and a Separator clip also without a host sync), and the parallel
 tier: gloo ranks sharing the card, one NCCL rank, ``Separator(mesh=...)``
 launch counts, the FastMNMF whitening start's card-vs-CPU spread, the
-Monte-Carlo sweep twin batched against serial, and the bench twin's rows.
+Monte-Carlo sweep twin batched against serial, and the bench twin's rows;
+the ``tiss_batch`` cell's T-ISS group, the chunked batched ``eigh`` and
+the tiny T-ISS cell through the benchmark harness.
 
 Every test here needs a card and skips without one. This file imports no
 JAX, so it also runs where JAX is not installed:
@@ -832,6 +834,92 @@ def test_separator_never_syncs_the_host(cuda):
         assert y.is_cuda and y.shape == (clip.shape[0], 2)
         assert y.dtype == (torch.int16 if "out_dtype" in extra else torch.float32)
         np.testing.assert_array_equal(y.cpu().numpy(), sep.separate(clip))
+
+
+def test_separator_tiss_m8n2_taps5_group_on_card(cuda):
+    """The ``tiss_batch`` cell's configuration (``Separator("tiss", n_src=2,
+    nfft=1024, hop=512, n_iter=30, taps=5, delay=2)``, M=8, complex64): a
+    group of 8 of its rooms folded into one run on the card scores within
+    0.1 dB SDR and SIR of the same group at complex128 on the CPU, and
+    the device-resident clip path of a group syncs no host."""
+    import json
+    from pathlib import Path
+
+    from benchmark.traffic.generate import make_mixture
+    from overiva_tpu_torch import serving
+    from overiva_tpu_torch.metrics import bss_eval_sources
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "benchmark/configs/tiss_m8n2_taps5.json").read_text())
+    args = {k: v for k, v in cfg["args"].items() if k != "algo"}
+    rng = np.random.default_rng(41)
+    rooms = [make_mixture(rng, cfg["n_chan"], 96_000, cfg["fs"], cfg["scene"])
+             for _ in range(8)]
+    mixes = [mix.astype(np.float32) for mix, _ in rooms]
+    sep = serving.Separator("tiss", device=cuda, **args)
+    ys = sep.separate_batch(mixes)
+    assert sep.n_buckets() == 1
+    wants = serving.Separator("tiss", device="cpu", dtype=np.complex128,
+                              **args).separate_batch(mixes)
+    for i, (y, want, (_, premix)) in enumerate(zip(ys, wants, rooms)):
+        assert np.isfinite(y).all() and y.shape == want.shape == (96_000, 2)
+        refs = premix[:, 0]
+        sdr, sir, _, _ = bss_eval_sources(refs, np.asarray(y, np.float64).T)
+        sdr_w, sir_w, _, _ = bss_eval_sources(refs, want.T)
+        assert np.abs(sdr - sdr_w).max() < 0.1 and np.abs(sir - sir_w).max() < 0.1, (
+            i, sdr, sdr_w, sir, sir_w)
+    idxs = list(range(8))
+    prepped = [sep._prep_clip(x.shape[0]) for x in mixes]
+    xb = sep._group_bucket(mixes, idxs, prepped, cfg["n_chan"], False)
+    tp = torch.tensor([p[2] for p in prepped], device=cuda)
+    fused = dict(n_src=sep.n_src, **sep._fused)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yb = serving._masked_clip(xb, tp, sep.nfft, sep.hop, fused, sep._win, sep._win_s)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    start = sep._start(prepped[0][2])
+    np.testing.assert_array_equal(yb[0, start : start + 96_000].cpu().numpy(), ys[0])
+
+
+def test_eigh_chunked_on_card(cuda):
+    """16 folded rooms of 2,049 bins: the batched eigh runs as two calls of
+    16,392 (one call of 32,784 is refused by cuSOLVER), and agrees with 16
+    calls of 2,049 in eigenvalues and in each eigenvector up to its
+    phase."""
+    from overiva_tpu_torch.ops import linalg as tla
+
+    rng = np.random.default_rng(43)
+    A = rng.standard_normal((16 * 2049, 8, 8)) + 1j * rng.standard_normal((16 * 2049, 8, 8))
+    A = torch.from_numpy((A @ np.conj(np.swapaxes(A, -1, -2))).astype(np.complex64)).to(cuda)
+    assert tla.eigh_chunks(A.shape[0]) == 2
+    w, v = tla.eigh(A)
+    parts = [torch.linalg.eigh(c) for c in A.split(2049)]
+    w_ref = torch.cat([p[0] for p in parts])
+    v_ref = torch.cat([p[1] for p in parts])
+    torch.testing.assert_close(w, w_ref, rtol=1e-5, atol=1e-5 * float(w_ref.abs().max()))
+    overlap = (v.conj() * v_ref).sum(dim=-2).abs()
+    torch.testing.assert_close(overlap, torch.ones_like(overlap), rtol=0, atol=1e-4)
+
+
+def test_tiny_tiss_cell_on_card(cuda, tmp_path):
+    """The tiny T-ISS cell through the harness on the card, traced: correct,
+    and all six of its per-layer metrics, the device trace's too."""
+    import time
+
+    from benchmark import run
+    from benchmark.tests import tiny, tiny_cells
+
+    root = tiny_cells.write_bench(tmp_path, cells={**tiny.CELLS, **tiny_cells.MORE})
+    cell = run.load_cell("tiny_tiss", root, (tiny.DATA, run.HERE))
+    res = run.run_cell(cell, 2**31 + 11, 2.0, True, "cuda", time.perf_counter())
+    assert res["correct"] is True, res["compared"]
+    assert set(res["metrics"]) == {m["name"] for m in cell.per_layer} == {
+        "epoch_ms.tiss", "launches_per_epoch.tiss", "idle_frac.tiss", "tap_ms.tiss",
+        "tap_share.tiss", "tap_hbm_frac.tiss"}
+    assert 0 < res["metrics"]["tap_share.tiss"]["value"] <= 1
+    assert 0 < res["metrics"]["tap_hbm_frac.tiss"]["value"] <= 1
 
 
 # ------------------------------------------------------ the parallel tier

@@ -172,3 +172,31 @@ def test_quad_form_cancellation_trips_guard():
     w = Q[:, :, -1].astype(np.complex64) * 1e4
     _, good = tla.quad_form(torch.from_numpy(w), torch.from_numpy(V))
     assert not good.any()
+
+
+@pytest.mark.parametrize("shape", [(13, 4, 4), (3, 5, 3, 3), (7, 2, 2)])
+def test_eigh_chunks_equal_one_call(monkeypatch, shape):
+    """A batch above ``EIGH_BATCH`` runs as the fewest equal chunks, each
+    matrix decomposed on its own: bit for bit one call's results, on the
+    CPU as on a card (5 here in place of 24,576)."""
+    monkeypatch.setattr(tla, "EIGH_BATCH", 5)
+    rng = np.random.default_rng(sum(shape))
+    A = _crandn(rng, *shape)
+    A = torch.from_numpy(A + np.conj(np.swapaxes(A, -1, -2)))
+    want = torch.linalg.eigh(A)
+    calls = []
+    eigh = torch.linalg.eigh
+    monkeypatch.setattr(torch.linalg, "eigh", lambda a: calls.append(a.shape[0]) or eigh(a))
+    w, v = tla.eigh(A)
+    n = int(np.prod(shape[:-2]))
+    assert len(calls) == tla.eigh_chunks(n) == -(-n // 5)
+    assert max(calls) - min(calls) <= 1 and sum(calls) == n
+    assert torch.equal(w, want[0]) and torch.equal(v, want[1])
+
+
+def test_eigh_chunks_at_the_benchmark_groups():
+    """8 folded rooms of 2,049 bins stay one call; 16 become two of
+    16,392."""
+    assert tla.eigh_chunks(2049) == tla.eigh_chunks(8 * 2049) == 1
+    assert tla.eigh_chunks(16 * 2049) == 2
+    assert [len(c) for c in torch.empty(16 * 2049).tensor_split(2)] == [16392, 16392]

@@ -7,6 +7,9 @@ Gates:
   ``request`` a call, one ``family.start`` and ``n_iter`` numbered
   ``family.epoch`` spans, and the counts (bytes, frames, bins, matrices);
 - the start and epochs of each family that ``run_family`` runs;
+- T-ISS's start, its epochs (``taps``) and the ``tiss.taps`` span inside
+  each (``steps``, ``bins``, ``frames``, ``outputs``), and its outputs bit
+  for bit with tracing on and off;
 - with tracing off nothing is recorded and no stage reaches a running
   profiler; the outputs are bit for bit the same with it on;
 - each exported span agrees with its ``torch.profiler`` annotation within
@@ -208,3 +211,44 @@ def test_profile_trace_holds_the_stages(sep, clips, tmp_path):
     text = (tmp_path / "trace.json").read_text()
     assert '"family.epoch"' in text and '"serve.separate"' in text
     assert profiling._trace is None
+
+
+TISS_TAPS = 2  # taps a microphone: M x 2 tap steps an epoch
+
+
+@pytest.fixture(scope="module")
+def tiss_sep():
+    return Separator("tiss", n_src=N_SRC, n_iter=N_ITER, taps=TISS_TAPS, delay=1, device="cpu")
+
+
+@pytest.mark.parametrize("how", sorted(ROOTS))
+def test_tiss_spans(tiss_sep, clips, how):
+    """T-ISS's start (augmentation, augmented identity, first demix), its
+    epochs and, inside each, its tap steps, with their counts."""
+    with profiling.tracing() as tr:
+        sent, _ = _call(tiss_sep, clips, how)
+    spans = tr.spans
+    assert [s["name"] for s in spans[1:]] == (
+        ["serve.upload", "serve.analysis", "family.start"] + ["family.epoch", "tiss.taps"] * N_ITER
+        + ["api.proj_back", "serve.synthesis", "serve.download"])
+    B, F = len(sent), tiss_sep.nfft // 2 + 1
+    T = tiss_sep._prep_clip(sent[0].shape[0])[1]
+    start = spans[3]
+    assert start["counts"] == {"mats": 0} and start["parent"] == spans[0]["id"]
+    epochs = [s for s in spans if s["name"] == "family.epoch"]
+    taps = [s for s in spans if s["name"] == "tiss.taps"]
+    assert [s["counts"] for s in epochs] == [{"index": i, "bins": B * F, "taps": M * TISS_TAPS}
+                                            for i in range(N_ITER)]
+    assert [s["counts"] for s in taps] == [{"steps": M * TISS_TAPS, "bins": B * F, "frames": T,
+                                            "outputs": M}] * N_ITER
+    for e, t in zip(epochs, taps):
+        assert t["parent"] == e["id"] and e["t0_ns"] <= t["t0_ns"] < t["t1_ns"] <= e["t1_ns"]
+
+
+@pytest.mark.parametrize("how", sorted(ROOTS))
+def test_tiss_outputs_identical_with_tracing(tiss_sep, clips, how):
+    _, off = _call(tiss_sep, clips, how)
+    with profiling.tracing():
+        _, on = _call(tiss_sep, clips, how)
+    for a, b in zip(off, on):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
