@@ -25,6 +25,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    its W against the same function on the CPU (``ENTRY_TOL``), both
    kernels' counters at 0, and the median of 20 queued calls beside the
    card's name and power limit;
+3d. taps: ``tap_steps`` (one T-ISS epoch's tap-steering steps in one
+   launch) against its plain version and the plain version at complex128,
+   at the ``tiss_batch`` cell's shapes (T=192, 8 folded rooms of 513 bins,
+   M=8, MK=40, Z read in place from the augmented input) and at ragged
+   ones, with the kernel's and the plain version's times and the bound;
 4. trajectory: OverIVA in complex128 on the card against the float64 NumPy
    oracle at full width (M=8, N=3, nfft 4096, T=128), 10 iterations;
 5. main path: stft_analysis -> overiva (wcov="f32" and "bf16pack", complex64,
@@ -275,6 +280,14 @@ def update_rows_bound(m, n, F, T, n_mix=1):
     gauss = (m**3 - m) // 3 + m * (m - 1) // 2
     solves = n * F * 8 * (m**3 + gauss + m * m + m * m + n * n * m)
     return bound(n_bytes, cov + solves, F32_FLOPS)
+
+
+def tap_steps_bound(T, BF, B, m, MK):
+    """Z read once, Y read and written once, phi read, P's tap block
+    written (``benchmark/roofline_taps.py``'s bytes); 22 flops per (t, bin,
+    output, step): phi z, the two sums, the update."""
+    n_bytes = 8 * T * BF * MK + 2 * 8 * T * BF * m + 4 * T * B * m + 8 * BF * m * MK
+    return bound(n_bytes, 22 * T * BF * m * MK, F32_FLOPS)
 
 
 # ----------------------------------------------------------------- timing
@@ -533,6 +546,59 @@ def phase_fused_kernel(dev, seed):
                 result["at_cells"][f"F{F}_T{T}_B{B}"] = {
                     "max_abs_err": err, "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by}
             line += " (20 runs)"
+        log(line)
+    return result
+
+
+# max|kernel - complex128| / max|complex128| of the tap steps' P and Y: f32
+# sums over T in another order, carried through MK sequential steps
+TAPS_TOL = 1e-5
+
+
+def phase_tap_kernel(dev, seed):
+    from overiva_tpu_torch.ops.tap_steps import tap_steps, tap_steps_reference
+
+    rng = np.random.default_rng(seed + 3)
+    result = {}
+    for T, B, F, m, MK, timed in [
+        (192, 8, 513, 8, 40, True),  # the tiss_batch cell
+        (37, 1, 129, 8, 40, False), (100, 3, 65, 5, 16, False), (77, 1, 129, 3, 15, False),
+        (256, 1, 129, 2, 10, False),
+    ]:
+        BF = B * F
+
+        def cplx(*shape):
+            z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+            return torch.from_numpy(z.astype(np.complex64)).to(dev)
+
+        Xt, P, Y = cplx(T, BF, m + MK), cplx(BF, m, m + MK), cplx(T, BF, m)
+        phi = torch.from_numpy((rng.random((T, B, m)) + 0.1).astype(np.float32)).to(dev)
+        Z = Xt[:, :, m:]  # read in place
+        P_k, Y_k = tap_steps(P, Y, Z, phi, B)
+        P_p, Y_p = tap_steps_reference(P, Y, Z, phi, B)
+        P_d, Y_d = tap_steps_reference(P.to(torch.complex128), Y.to(torch.complex128),
+                                       Z.to(torch.complex128), phi.double(), B)
+        torch.cuda.synchronize()
+        errs = [((a.to(torch.complex128) - b).abs().max() / b.abs().max()).item()
+                for a, b in ((P_k, P_d), (Y_k, Y_d), (P_p, P_d), (Y_p, Y_d))]
+        line = (
+            f"[taps] tap_steps T={T} B={B} F={F} M={m} MK={MK}: vs complex128 max|dP| "
+            f"{errs[0]:.2e}, max|dY| {errs[1]:.2e} (plain complex64 {errs[2]:.2e}, "
+            f"{errs[3]:.2e}; tol {TAPS_TOL:g})"
+        )
+        if not max(errs[:2]) <= TAPS_TOL:
+            raise AssertionError(line)
+        if timed:
+            ms = cuda_ms(lambda: tap_steps(P, Y, Z, phi, B), queued=True)
+            plain_ms = cuda_ms(lambda: tap_steps_reference(P, Y, Z, phi, B))
+            bound_ms, bound_by = tap_steps_bound(T, BF, B, m, MK)
+            line += (
+                f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bound_ms * 1e3:.2f} us ({bound_by}) = {100 * bound_ms / ms:.1f} % of "
+                "the kernel, no single library call (20 runs)"
+            )
+            result = {"max_rel_err": max(errs[:2]), "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
         log(line)
     return result
 
@@ -2658,6 +2724,7 @@ def main():
     kernel = timed("kernel", phase_kernel, dev, seed)
     fused = timed("fused kernel", phase_fused_kernel, dev, seed)
     entry_launches = timed("entry", phase_entry, dev)
+    taps = timed("tap kernel", phase_tap_kernel, dev, seed)
 
     rng = np.random.default_rng(seed)
     mix, images = make_mixture(rng, N, M, samples_for_frames(128))
@@ -2676,7 +2743,7 @@ def main():
 
         scenes = {(f, s): pool.submit(scaled_mixture, s, n_samples=n_samples)
                   for f, n_samples in SCALED_SCENES.items() for s in SCALED_SEEDS}
-        phases(dev, seed, timed, kernel, fused, mix, images, X64, oracle_jobs, serving,
+        phases(dev, seed, timed, kernel, fused, taps, mix, images, X64, oracle_jobs, serving,
                serve_oracles, scenes, pool, entry_launches)
     finally:
         pool.shutdown(cancel_futures=True)
@@ -2688,10 +2755,10 @@ def main():
     }}))
 
 
-def phases(dev, seed, timed, kernel, fused, mix, images, X64, oracle_jobs, serving,
+def phases(dev, seed, timed, kernel, fused, taps, mix, images, X64, oracle_jobs, serving,
            serve_oracles, scenes, pool, entry_launches):
-    """Phases 4-14 and the kernels line (``kernel``, ``fused``: phases 3 and
-    3b's entries; ``entry_launches``: phase 3c's), on phase 5's mixture
+    """Phases 4-14 and the kernels line (``kernel``, ``fused``, ``taps``:
+    phases 3, 3b and 3d's entries; ``entry_launches``: phase 3c's), on phase 5's mixture
     ``mix`` (its STFT ``X64``);
     ``oracle_jobs``: phase 8's oracle runs; ``serving`` and
     ``serve_oracles``: phase 11's clips and their oracle scores;
@@ -2751,6 +2818,12 @@ def phases(dev, seed, timed, kernel, fused, mix, images, X64, oracle_jobs, servi
         "parallel_launches": par_launches[1],
         "sweep_launches": sweep_launches[1],
         "bench_launches": bench_launches[1],
+    }, {
+        "name": "tap_steps",
+        "route": "cuda",
+        "source": "overiva_tpu_torch/csrc/tap_steps.cu",
+        "replaces": None,
+        **taps,
     }]}))
 
 

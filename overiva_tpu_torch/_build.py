@@ -107,7 +107,7 @@ def build_library() -> Path:
 
 def ptxas_summary(log: str) -> list[str]:
     """One line per kernel of a build log made with ``-Xptxas -v``: its
-    name (with its template argument), registers, stack frame and spills."""
+    name (with its template arguments), registers, stack frame and spills."""
     rows, name, frame = [], None, ""
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
@@ -115,8 +115,9 @@ def ptxas_summary(log: str) -> list[str]:
             mangled = entry.group(1)
             found = re.search(r"[A-Za-z_]+kernel", mangled)
             name = found.group(0) if found else mangled
-            arg = re.match(r"ILi(\d+)E", mangled[found.end():]) if found else None
-            name += f"<{arg.group(1)}>" if arg else ""
+            args = re.match(r"I((?:Li\d+E)+)E", mangled[found.end():]) if found else None
+            if args:
+                name += "<" + ",".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
             frame = ""
             continue
         props = re.search(
@@ -144,4 +145,9 @@ def library() -> ctypes.CDLL:
     lib.update_rows_launch.restype = ci
     lib.update_rows_error_string.argtypes = [ci]
     lib.update_rows_error_string.restype = ctypes.c_char_p
+    ll = ctypes.c_longlong
+    lib.tap_steps_launch.argtypes = [vp, vp, vp, vp, vp, ll, ll, vp, ci, ci, ci, ci, ci, vp]
+    lib.tap_steps_launch.restype = ci
+    lib.tap_steps_error_string.argtypes = [ci]
+    lib.tap_steps_error_string.restype = ctypes.c_char_p
     return lib

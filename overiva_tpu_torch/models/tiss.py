@@ -8,31 +8,34 @@ Per epoch:
 - the M source-steering steps of ``models/auxiva_iss.py`` (the same code,
   :func:`iss_steps`), applied to the augmented rows of P;
 - the MK = M*taps tap-steering steps against the delayed observations
-  z_j = Xt[:, :, M + j]: weighted least squares, no self term. The
-  denominators depend only on phi, so they are one contraction before the
-  loop; the loop carries Y only, and the tap block of P is updated once
-  from the stacked coefficients (the JAX scan's rounding order).
+  z_j = Xt[:, :, M + j]: weighted least squares, no self term
+  (``ops/tap_steps.py``). The loop carries Y only, and the tap block of P
+  is updated once from the stacked coefficients (the JAX scan's rounding
+  order). Where ``ops/tap_steps.py::kernel_route`` holds (CUDA,
+  complex64, M, MK and T within the kernel's limits) the MK steps are one
+  launch of the ``tap_steps`` kernel; every other input runs the plain
+  steps.
 
 ``n_src < M`` adds the phi = 1 background outputs, as OverIVA-ISS. At
 taps = 0 an epoch is the ISS epoch exactly. Folded mixtures (``n_mix``,
 ``models/overiva.py::fold_mixtures``) each get their own activations.
 Each epoch is a ``family.epoch`` span (``index``, ``bins``, ``taps`` =
 MK), its tap steps a ``tiss.taps`` span (``steps`` = MK, ``bins``,
-``frames``, ``outputs`` = M).
+``frames``, ``outputs`` = M, ``kernel``: 1 where the steps ran the
+kernel).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..ops.tap_steps import kernel_route, tap_steps, tap_steps_reference
 from ..ops.wpe import delayed_taps
 from ..utils.profiling import span
 from .auxiva_iss import iss_phi, iss_steps
 from .overiva import demix
 
 __all__ = ["augment_taps", "augmented_eye", "tap_steps", "tiss_iterations"]
-
-_EPS = 1e-15
 
 
 def augment_taps(X, taps: int, delay: int):
@@ -50,29 +53,6 @@ def augmented_eye(Xt, n_chan: int):
     return P
 
 
-def tap_steps(P, Y, Z, phi, n_mix: int = 1):
-    """The tap-steering steps against the delayed observations Z (T, B*F,
-    MK), in order, with the weights phi (T, B, M): P (B*F, M, M + MK),
-    Y (T, B*F, M). Returns the new (P, Y)."""
-    T, BF, M = Y.shape
-    MK = Z.shape[2]
-    F = BF // n_mix
-    Zb = Z.reshape(T, n_mix, F, MK)
-    # every denominator depends on phi only: one contraction for all steps
-    den_all = torch.einsum("tbm,tbfj->bfmj", phi, Zb.abs() ** 2).reshape(BF, M, MK)
-    vs = []
-    for j in range(MK):
-        zj = Z[:, :, j]  # (T, B*F)
-        num = torch.einsum("tbfm,tbf->bfm", phi[:, :, None, :] * Y.reshape(T, n_mix, F, M),
-                           Zb[:, :, :, j].conj()).reshape(BF, M)
-        v = num / torch.clamp_min(den_all[:, :, j], _EPS)
-        Y = Y - v[None, :, :] * zj[:, :, None]
-        vs.append(v)
-    P = P.clone()
-    P[:, :, M:] -= torch.stack(vs, dim=2)
-    return P, Y
-
-
 def _tiss_epoch(Xt, P, Y, model: str, n_chan: int, n_src=None, n_mix: int = 1, group=None,
                 n_freq=None, bin_mask=None):
     """One T-ISS epoch. Xt: (T, B*F, MJ); P: (B*F, M, MJ); Y: (T, B*F, M).
@@ -83,8 +63,11 @@ def _tiss_epoch(Xt, P, Y, model: str, n_chan: int, n_src=None, n_mix: int = 1, g
     P, Y = iss_steps(P, Y, phi, n_mix)
     if Xt.shape[2] > n_chan:
         T, BF, M = Y.shape
-        with span("tiss.taps", steps=Xt.shape[2] - n_chan, bins=BF, frames=T, outputs=M):
-            P, Y = tap_steps(P, Y, Xt[:, :, n_chan:], phi, n_mix)
+        MK = Xt.shape[2] - n_chan
+        route = kernel_route(Y.device.type, Y.dtype, M, MK, T)
+        steps = tap_steps if route else tap_steps_reference
+        with span("tiss.taps", steps=MK, bins=BF, frames=T, outputs=M, kernel=int(route)):
+            P, Y = steps(P, Y, Xt[:, :, n_chan:], phi, n_mix)
     return P, Y
 
 

@@ -1,5 +1,5 @@
 """PyTorch port on a CUDA card: the hand-written kernels (``wcov_packed``,
-``update_rows``) against their plain versions, and the main path, the
+``update_rows``, ``tap_steps``) against their plain versions, and the main path, the
 fused epoch, the ISS, IP2, FIVE and OGIVE families, the per-(t,f)-weighted
 and joint families, the streaming classes and the clip-serving
 ``Separator`` on the card against the same on the CPU (the streaming
@@ -22,6 +22,7 @@ import torch
 
 from overiva_tpu_torch import api
 from overiva_tpu_torch.models import overiva as core
+from overiva_tpu_torch.ops import tap_steps as tts
 from overiva_tpu_torch.ops import update_rows as tur
 from overiva_tpu_torch.ops import wcov_packed as twp
 
@@ -345,6 +346,138 @@ def test_update_rows_refuses_bad_inputs(cuda):
         tur.update_rows(phi[:, :1], X, Cx, W, 2)
     with pytest.raises(ValueError, match="B dividing"):  # 3 mixtures do not split 16 bins
         tur.update_rows(torch.ones((8, 3, 2), device=cuda), X, Cx, W, 2)
+
+
+# ------------------------------------------------------ the tap-steps kernel
+
+def _tap_state(seed, T, n_mix, F, M, MK, device):
+    """An augmented input Xt (T, B*F, M + MK), P (B*F, M, M + MK), Y and
+    phi (T, B, M), complex64 / float32 on ``device``."""
+    rng = np.random.default_rng(seed)
+    BF = n_mix * F
+
+    def cplx(*shape):
+        z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        return torch.from_numpy(z.astype(np.complex64)).to(device)
+
+    Xt, P, Y = cplx(T, BF, M + MK), cplx(BF, M, M + MK), cplx(T, BF, M)
+    phi = torch.from_numpy((rng.random((T, n_mix, M)) + 0.1).astype(np.float32)).to(device)
+    return Xt, P, Y, phi
+
+
+def _gap(a, b, scale):
+    return (a.to(b.dtype) - b).abs().max().item() / scale
+
+
+@pytest.mark.parametrize(
+    "T,n_mix,F,M,MK",
+    [
+        (192, 8, 513, 8, 40),  # the tiss_batch cell
+        (37, 1, 129, 8, 40), (100, 3, 65, 8, 16), (192, 1, 513, 8, 40),
+        (192, 2, 129, 2, 10), (77, 1, 129, 3, 15), (192, 1, 129, 8, 1), (64, 2, 33, 5, 10),
+        # every compiled frame count: 4, 8, 16 and 32 lanes an output
+        (16, 1, 9, 8, 6), (128, 3, 7, 6, 5), (256, 1, 9, 8, 40), (200, 2, 5, 4, 12),
+        (128, 1, 9, 4, 7), (256, 1, 9, 2, 3), (256, 1, 9, 1, 9), (1, 1, 3, 8, 2),
+    ],
+)
+def test_tap_steps_kernel_matches_plain(cuda, T, n_mix, F, M, MK):
+    """The kernel and the plain version on the card, both complex64,
+    against the plain version at complex128: each within 1e-5 of max|P|
+    and of max|Y| (the larger of the input's and the result's: at T=1 the
+    fit on z_0 cancels Y to rounding noise). The kernel sums over T in
+    another order than cuBLAS does, each step's v to ~1e-7 relative, and
+    MK sequential steps carry it (~2e-7 to 8e-7 in a host emulation of the
+    kernel and on the card); 1e-5 leaves ten times that. One launch a call;
+    the inputs are left as they were."""
+    Xt, P, Y, phi = _tap_state(T + F + M + MK, T, n_mix, F, M, MK, cuda)
+    Z = Xt[:, :, M:]
+    inputs = [t.clone() for t in (Xt, P, Y, phi)]
+    before = tts.tap_steps.launches
+    P_k, Y_k = tts.tap_steps(P, Y, Z, phi, n_mix)
+    torch.cuda.synchronize()
+    assert tts.tap_steps.launches == before + 1
+    P_p, Y_p = tts.tap_steps_reference(P, Y, Z, phi, n_mix)
+    assert tts.tap_steps.launches == before + 1  # the plain version never counts
+    P_d, Y_d = tts.tap_steps_reference(*(t.to(torch.complex128) for t in (P, Y, Z)),
+                                       phi.double(), n_mix)
+    assert all(torch.equal(a, b) for a, b in zip((Xt, P, Y, phi), inputs))
+    assert torch.isfinite(P_k).all() and torch.isfinite(Y_k).all()
+    assert torch.equal(P_k[:, :, :M], P[:, :, :M])
+    p_scale = P_d.abs().max().item()
+    y_scale = max(Y_d.abs().max().item(), Y.abs().max().item())
+    gaps = [_gap(P_k, P_d, p_scale), _gap(Y_k, Y_d, y_scale),
+            _gap(P_p, P_d, p_scale), _gap(Y_p, Y_d, y_scale)]
+    assert max(gaps) <= 1e-5, gaps
+
+
+def test_tap_steps_kernel_reads_z_in_place(cuda):
+    """Z read through its strides: the view ``Xt[:, :, n_chan:]`` (16-byte
+    copies), the same view one element into a larger buffer (8-byte
+    copies) and a dense copy give the same P and Y bit for bit."""
+    T, n_mix, F, M, MK = 192, 2, 65, 8, 40
+    Xt, P, Y, phi = _tap_state(5, T, n_mix, F, M, MK, cuda)
+    buf = torch.zeros(Xt.numel() + 1, dtype=Xt.dtype, device=cuda)
+    buf[1:] = Xt.reshape(-1)
+    Xt_odd = buf[1:].view(Xt.shape)
+    assert Xt_odd.data_ptr() % 16 != 0
+    outs = [tts.tap_steps(P, Y, z, phi, n_mix)
+            for z in (Xt[:, :, M:], Xt_odd[:, :, M:], Xt[:, :, M:].contiguous())]
+    for P_o, Y_o in outs[1:]:
+        assert torch.equal(P_o, outs[0][0]) and torch.equal(Y_o, outs[0][1])
+
+
+def test_tap_steps_refuses_bad_inputs(cuda):
+    Xt, P, Y, phi = _tap_state(6, 16, 1, 8, 2, 4, cuda)
+    Z = Xt[:, :, 2:]
+    with pytest.raises(ValueError, match="complex64 only"):
+        tts.tap_steps(P, Y.to(torch.complex128), Z, phi)
+    with pytest.raises(ValueError, match="one device"):
+        tts.tap_steps(P, Y, Z, phi.cpu())
+    for T, M, MK, what in ((16, tts.MAX_M + 1, 9, "1 <= M <="),
+                           (16, 1, tts.MAX_MK + 1, "1 <= MK <="),
+                           (tts.MAX_T + 1, 2, 4, "1 <= T <=")):
+        Xb, Pb, Yb, phib = _tap_state(7, T, 1, 8, M, MK, cuda)
+        assert not tts.kernel_route("cuda", torch.complex64, M, MK, T)
+        with pytest.raises(ValueError, match=what):
+            tts.tap_steps(Pb, Yb, Xb[:, :, M:], phib)
+
+
+def test_tiss_epochs_launch_tap_steps_once_an_epoch(cuda):
+    """T-ISS at the ``tiss_batch`` cell's shapes (8 folded rooms of 513
+    bins, 192 frames, M=8, 5 taps, N=2): ``tiss_iterations`` on the card
+    launches the kernel once an epoch, every ``tiss.taps`` span says
+    ``kernel=1``, an epoch makes fewer than 180 launches, and 4 epochs
+    stay within 1e-4 of max|Y| of the same epochs run with the plain
+    steps on the card (complex64 both; the sums' order differs, and the
+    source steps feed it on)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from overiva_tpu_torch.models import tiss as ttiss
+    from overiva_tpu_torch.utils.profiling import tracing
+
+    rng = np.random.default_rng(8)
+    T, F, M, n_mix, n_ep = 192, 8 * 513, 8, 8, 4
+    X = rng.standard_normal((T, F, M)) + 1j * rng.standard_normal((T, F, M))
+    Xt = ttiss.augment_taps(torch.from_numpy(X.astype(np.complex64)).to(cuda), 5, 2)
+    P0 = ttiss.augmented_eye(Xt, M)
+    ttiss.tiss_iterations(Xt, P0, 1, "laplace", M, 2, n_mix=n_mix)  # build, warm
+    torch.cuda.synchronize()
+    before = tts.tap_steps.launches
+    with tracing() as tr, profile(activities=[ProfilerActivity.CPU]) as prof:
+        P, Y = ttiss.tiss_iterations(Xt, P0, n_ep, "laplace", M, 2, n_mix=n_mix)
+        torch.cuda.synchronize()
+    assert tts.tap_steps.launches == before + n_ep
+    taps = [s["counts"] for s in tr.spans if s["name"] == "tiss.taps"]
+    assert len(taps) == n_ep and all(t["kernel"] == 1 for t in taps)
+    launches = [e for e in prof.events()
+                if e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))]
+    assert len(launches) < 180 * n_ep, len(launches)
+    P_p, Y_p = P0, ttiss.demix(Xt, P0)
+    for _ in range(n_ep):
+        phi = ttiss.iss_phi(Y_p, "laplace", 2, n_mix)
+        P_p, Y_p = ttiss.iss_steps(P_p, Y_p, phi, n_mix)
+        P_p, Y_p = tts.tap_steps_reference(P_p, Y_p, Xt[:, :, M:], phi, n_mix)
+    assert (Y - Y_p).abs().max().item() <= 1e-4 * Y_p.abs().max().item()
 
 
 def test_fused_epoch_on_card_matches_cpu(cuda):

@@ -305,7 +305,8 @@ def test_ptxas_summary():
 def test_chip_smoke_bounds():
     """The least times ``chip_smoke.py`` reports beside each kernel, from
     the headline shapes and the benchmark cells' (one clip, and 8 rooms
-    folded): all are bound by bytes. update_rows' covariances
+    folded; the T-ISS group for ``tap_steps``, equal to the benchmark's
+    own floor): all are bound by bytes. update_rows' covariances
     share x x^H across sources over the Hermitian triangle: 576 flops per
     frame and bin at M=8, N=3."""
     sys.path.insert(0, str(REPO))
@@ -324,6 +325,12 @@ def test_chip_smoke_bounds():
     assert by == "bytes" and 0.02504 < ms < 0.02506
     ms, by = chip_smoke.wcov_bound(3, 2049, 8, 128)
     assert by == "bytes" and 0.0034 < ms < 0.0035
+    # tap_steps at the tiss_batch cell: the benchmark's byte floor, 108.5 us
+    from benchmark.roofline_taps import tap_steps_bound
+
+    ms, by = chip_smoke.tap_steps_bound(192, 8 * 513, 8, 8, 40)
+    assert by == "bytes" and ms == 1e3 * tap_steps_bound(192, 8 * 513, 8, 8, 40)[0]
+    assert 0.1085 < ms < 0.1086
 
 
 def test_launch_validation():
