@@ -55,9 +55,8 @@ from .models import online_wpe as _online_wpe
 from .models import overiva as _core
 from .models import ilrma_t as _ilrma_t
 from .models import sparseauxiva as _sparse
-from .models import tip as _tip
 from .models import tiss as _tiss
-from .models.family import FAMILIES, chunked, run_family
+from .models.family import FAMILIES, JOINT, _augmented_w0, chunked, run_family, run_joint
 from .models.source_models import MODELS
 from .ops import projection as _proj
 from .ops import stft as _stft
@@ -1086,34 +1085,10 @@ def wpe_batch(X, taps=10, delay=3, n_iter=3, diag_load=1e-5, dtype=None, device=
     return _output(_wpe.wpe(Xb, int(taps), int(delay), int(n_iter), float(diag_load)), numpy_in)
 
 
-def _augmented_w0(W0, F, M, N, taps, dtype, device):
-    """A user W0 -> the augmented stack (F, M, M + M*taps): a previous full
-    augmented P, a square (F, M, M) stack (zero tap block), or (F, N, M)
-    target rows placed into the identity. The row count is tested first:
-    at taps=0 the full-augmented and square widths coincide."""
-    W0 = as_tensor(W0, dtype, device)
-    MJ = M + M * taps
-    if W0.shape[1] != M:  # (F, N, M) target rows into the identity
-        P0 = torch.zeros((F, M, MJ), dtype=dtype, device=device)
-        P0[:, :, :M] = torch.eye(M, dtype=dtype, device=device)
-        P0[:, :N, :M] = W0
-    elif W0.shape[2] == MJ:  # full augmented (== square at taps=0)
-        P0 = W0.clone()
-    else:  # square (F, M, M), zero tap block
-        P0 = torch.zeros((F, M, MJ), dtype=dtype, device=device)
-        P0[:, :, :M] = W0
-    return P0
-
-
-def _joint_start(X, W0, N, taps, delay, out_dtype, cdtype):
-    """(augmented input Xt, start P) of a joint run on X (T, F, M): the
-    augmented identity, or ``W0`` through :func:`_augmented_w0` (rounded
-    to ``out_dtype`` first, as the df tier takes it)."""
-    T, F, M = X.shape
-    Xt = _tiss.augment_taps(X, taps, delay)
-    if W0 is None:
-        return Xt, _tiss.augmented_eye(Xt, M)
-    return Xt, _augmented_w0(W0, F, M, N, taps, out_dtype, X.device).to(cdtype)
+def _rounded_w0(W0, out_dtype, X):
+    """A user W0 on X's device, rounded to ``out_dtype`` (as the df tier
+    takes it); None stays None."""
+    return None if W0 is None else as_tensor(W0, out_dtype, X.device)
 
 
 def tiss(
@@ -1147,16 +1122,12 @@ def tiss(
     M = X.shape[2]
     N = _n_src(n_src, M)
     taps, delay = _check_taps(taps, delay)
-    numpy_in, cdtype, out_dtype, Xd = _df_setup(X, dtype, acc, device)
-    Xt, P = _joint_start(Xd, W0, N, taps, delay, out_dtype, cdtype)
-
-    def run(state, steps):  # resumes from (P, Y), never re-demixes
-        return _tiss.tiss_iterations(Xt, state[0], steps, model, M, N, Y=state[1])
-
-    P, Y = chunked(run, (P, _core.demix(Xt, P)), n_iter,
-                   _scaled_callback(callback, Xd, numpy_in, out_dtype), callback_every,
-                   lambda s: s[1][:, :, :N])
-    return _outputs(Y[:, :, :N], P, Xd, proj_back, return_filters, numpy_in, out_dtype)
+    numpy_in, _, out_dtype, Xd = _df_setup(X, dtype, acc, device)
+    Y, P = run_joint(Xd, N, int(n_iter), model, "tiss", taps, delay,
+                     W0=_rounded_w0(W0, out_dtype, Xd),
+                     callback=_scaled_callback(callback, Xd, numpy_in, out_dtype),
+                     callback_every=callback_every)
+    return _outputs(Y, P, Xd, proj_back, return_filters, numpy_in, out_dtype)
 
 
 def _check_tip_wcov(wcov):
@@ -1200,18 +1171,12 @@ def tip(
     N = _n_src(n_src, M)
     taps, delay = _check_taps(taps, delay)
     _check_tip_wcov(wcov)
-    numpy_in, cdtype, out_dtype, Xd = _df_setup(X, dtype, acc, device, wcov)
-    Xt, P = _joint_start(Xd, W0, N, taps, delay, out_dtype, cdtype)
-    if W0 is None and warm_iter > 0 and taps > 0:
-        P, _ = _tiss.tiss_iterations(Xt, P, int(warm_iter), model, M, N)
-
-    def run(P, steps):
-        return _tip.tip_iterations(Xt, P, steps, model, M, N, str(wcov))
-
-    P = chunked(run, P, n_iter, _scaled_callback(callback, Xd, numpy_in, out_dtype),
-                callback_every, lambda P: _core.demix(Xt, P[:, :N, :]))
-    return _outputs(_core.demix(Xt, P[:, :N, :]), P, Xd, proj_back, return_filters,
-                    numpy_in, out_dtype)
+    numpy_in, _, out_dtype, Xd = _df_setup(X, dtype, acc, device, wcov)
+    Y, P = run_joint(Xd, N, int(n_iter), model, "tip", taps, delay, int(warm_iter), str(wcov),
+                     W0=_rounded_w0(W0, out_dtype, Xd),
+                     callback=_scaled_callback(callback, Xd, numpy_in, out_dtype),
+                     callback_every=callback_every)
+    return _outputs(Y, P, Xd, proj_back, return_filters, numpy_in, out_dtype)
 
 
 def ilrma_t(
@@ -1241,7 +1206,11 @@ def ilrma_t(
     _determined(n_src, M, "ilrma_t")
     taps, delay = _check_taps(taps, delay)
     numpy_in, cdtype, Xd = _setup(X, dtype, device)
-    Xt, P = _joint_start(Xd, W0, M, taps, delay, cdtype, cdtype)
+    Xt = _tiss.augment_taps(Xd, taps, delay)
+    if W0 is None:
+        P = _tiss.augmented_eye(Xt, M)
+    else:
+        P = _augmented_w0(W0, F, M, M, taps, cdtype, Xd.device)
     Xt, P = Xt[None], P[None]
     B, H = _nmf_init([seed], M, F, int(n_components), T, cdtype, Xd.device)
 
@@ -1264,11 +1233,9 @@ def tiss_batch(X, n_src=None, taps=5, delay=2, n_iter=20, proj_back=True, model=
     N = _n_src(n_src, M)
     taps, delay = _check_taps(taps, delay)
     numpy_in, _, Xb = _setup(X, dtype, device)
-    nb = Xb.shape[0]
-    Xt = _core.fold_mixtures(_tiss.augment_taps(Xb, taps, delay))
-    _, Y = _tiss.tiss_iterations(Xt, _tiss.augmented_eye(Xt, M), int(n_iter), model, M, N,
-                                 n_mix=nb)
-    return _batch_out(Y[:, :, :N], _core.fold_mixtures(Xb), nb, proj_back, numpy_in)
+    Xf = _core.fold_mixtures(Xb)
+    Y, _ = run_joint(Xf, N, int(n_iter), model, "tiss", taps, delay, n_mix=Xb.shape[0])
+    return _batch_out(Y, Xf, Xb.shape[0], proj_back, numpy_in)
 
 
 def tip_batch(X, n_src=None, taps=5, delay=2, n_iter=10, warm_iter=10, proj_back=True,
@@ -1282,14 +1249,10 @@ def tip_batch(X, n_src=None, taps=5, delay=2, n_iter=10, warm_iter=10, proj_back
     taps, delay = _check_taps(taps, delay)
     _check_tip_wcov(wcov)
     numpy_in, _, Xb = _setup(X, dtype, device)
-    nb = Xb.shape[0]
-    Xt = _core.fold_mixtures(_tiss.augment_taps(Xb, taps, delay))
-    P = _tiss.augmented_eye(Xt, M)
-    if warm_iter > 0 and taps > 0:
-        P, _ = _tiss.tiss_iterations(Xt, P, int(warm_iter), model, M, N, n_mix=nb)
-    P = _tip.tip_iterations(Xt, P, int(n_iter), model, M, N, str(wcov), n_mix=nb)
-    return _batch_out(_core.demix(Xt, P[:, :N, :]), _core.fold_mixtures(Xb), nb, proj_back,
-                      numpy_in)
+    Xf = _core.fold_mixtures(Xb)
+    Y, _ = run_joint(Xf, N, int(n_iter), model, "tip", taps, delay, int(warm_iter), str(wcov),
+                     n_mix=Xb.shape[0])
+    return _batch_out(Y, Xf, Xb.shape[0], proj_back, numpy_in)
 
 
 def ilrma_t_batch(X, n_src=None, taps=5, delay=2, n_iter=20, proj_back=True, n_components=2,
@@ -1612,24 +1575,17 @@ def _separate_mnmf(X, n_src, n_iter, algo):
     return _mnmf_images(Xu, x_scale, state, 0, n_src)[0]
 
 
-_SEPARATE_ALGOS = FAMILIES + ("tiss", "tip", "ilrma_t") + _MNMF_ALGOS
+_SEPARATE_ALGOS = FAMILIES + JOINT + ("ilrma_t",) + _MNMF_ALGOS
 
 
-def _separate_joint(X, n_src, n_iter, model, algo, taps, delay):
-    """T-ISS, T-IP (10 warm T-ISS epochs when taps > 0) or ILRMA-T on X
-    (T, F, M) as the JAX package's fused ``separate`` runs them; ILRMA-T's
-    NMF init is drawn from ``jax.random.PRNGKey(0)`` (the port's copy
-    ``utils/threefry.py``) and its n_src most energetic outputs are kept.
-    Returns the unscaled outputs (T, F, n_src)."""
+def _separate_ilrma_t(X, n_src, n_iter, taps, delay):
+    """ILRMA-T on X (T, F, M) as the JAX package's fused ``separate`` runs
+    it: the NMF init drawn from ``jax.random.PRNGKey(0)`` (the port's copy
+    ``utils/threefry.py``), the n_src most energetic outputs kept. Returns
+    the unscaled outputs (T, F, n_src)."""
     T, F, M = X.shape
     Xt = _tiss.augment_taps(X, taps, delay)
     P = _tiss.augmented_eye(Xt, M)
-    if algo == "tiss":
-        return _tiss.tiss_iterations(Xt, P, n_iter, model, M, n_src)[1][:, :, :n_src]
-    if algo == "tip":
-        if taps:  # the warm start
-            P, _ = _tiss.tiss_iterations(Xt, P, 10, model, M, n_src)
-        return _core.demix(Xt, _tip.tip_iterations(Xt, P, n_iter, model, M, n_src))[:, :, :n_src]
     rnp = np.dtype(_real_np(X.dtype))
     k1, k2 = threefry.split(threefry.prng_key(0))
     B = as_tensor(threefry.uniform(k1, (M, F, 2), rnp) + rnp.type(0.1), None, X.device)
@@ -1701,8 +1657,10 @@ def separate(
             # init_eig applies to "ip" only, as in the JAX package's separate
             Y, _ = run_family(X, N, int(n_iter), model, algo,
                               init_eig=bool(init_eig) and algo == "ip")
+        elif algo in JOINT:  # T-IP with its 10 warm T-ISS epochs
+            Y, _ = run_joint(X, N, int(n_iter), model, algo, int(taps), int(delay), warm_iter=10)
         else:
-            Y = _separate_joint(X, N, int(n_iter), model, algo, int(taps), int(delay))
+            Y = _separate_ilrma_t(X, N, int(n_iter), int(taps), int(delay))
         Y = _proj.apply_projection_back(Y, X[:, :, 0])
     y = _stft.synthesis(Y, int(nfft), int(hop))
     start = nfft - hop

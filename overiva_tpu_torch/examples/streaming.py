@@ -50,7 +50,7 @@ def main(argv=None):
         "no cascade)",
     )
     p.add_argument(
-        "--fused", action="store_true",
+        "--fused", action="store_true", dest="sample_blocks",
         help="drive the serving tier's StreamingSeparator instead of the "
         "STFT-domain class: raw sample blocks in and out, framing and "
         "overlap-add on the device; reports per-block latency",
@@ -62,7 +62,7 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.wpe and args.tiss:
         p.error("--wpe and --tiss are alternatives (cascade vs joint)")
-    if args.fused and args.wpe:
+    if args.sample_blocks and args.wpe:
         p.error("--fused streams online-iss/online-tiss (no WPE cascade)")
     dev = resolve_device(args.device)
 
@@ -80,7 +80,7 @@ def main(argv=None):
     refs = premix[:, 0, :n]
     print(f"device: {dev}" + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else ""))
 
-    if args.fused:
+    if args.sample_blocks:
         return _run_fused(args, mix, refs, hop, dev)
 
     X = api.stft_analysis(torch.from_numpy(stft_pad(mix, args.nfft, hop)).to(dev), args.nfft)

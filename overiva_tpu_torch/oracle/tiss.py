@@ -81,7 +81,7 @@ def tiss(
     P[:, :, :M] = np.eye(M, dtype=X.dtype)
     if W0 is not None:
         # dispatch on the ROW count first: at taps=0 the full-augmented
-        # and square widths coincide (api._augmented_w0 has the same rule)
+        # and square widths coincide (models/family.py::_augmented_w0 has the same rule)
         W0 = np.asarray(W0)
         if W0.shape[1] != M:
             P[:, :N, :M] = W0

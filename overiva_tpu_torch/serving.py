@@ -13,11 +13,13 @@ the bucketed tensor. The JAX package needs the grid to bound its compiled
 executables. Here it decides the same results (which frames are zero and
 how many there are, which clips share a batched run, ``stats``), so the
 port keeps it exactly; one CUDA graph per (bucket, n_chan) is what the
-grid makes possible later. The path from the upload of the samples to
-the download of the separated samples (analysis, the frame mask, the
-algorithm, projection back, synthesis, the int16 quantization) is torch
-ops on the device that read nothing back to the host. Correctness rests
-on an algebraic property of the IP/ISS family, not on approximation:
+grid makes possible later. Every clip and every group of clips takes one
+path from the upload of the samples to the download of the separated
+samples: the int16 scale, analysis, the frame mask, the registry's
+runner for the algorithm (projection back included), synthesis and the
+int16 quantization, all torch ops on the device that read nothing back
+to the host. Correctness rests on an algebraic property of the IP/ISS
+family, not on approximation:
 
 - an all-zero frame contributes nothing to any data statistic: the
   per-frame power and every weighted covariance carry an ``|x|^2``
@@ -40,7 +42,7 @@ padding-invariant (their multiplicative-update denominators sum model
 terms over frames without an ``|x|^2`` factor), and sparseauxiva's LASSO
 threshold is scale-absolute. :data:`SERVABLE` lists the algorithms whose
 invariance is gated (``tests/test_torch_serving.py``); anything else
-needs ``allow_unverified=True`` and runs through the registry runner.
+needs ``allow_unverified=True``, and then runs the same path ungated.
 
 **Streams.** Each block runs framing, STFT analysis (``ops/stft.py``),
 the online step (``models/online_iss.py`` or ``models/online_tiss.py``),
@@ -59,20 +61,14 @@ from collections import Counter
 import numpy as np
 import torch
 
-from . import api, resolve_device
+from . import resolve_device
 from .api import (
-    DEFAULT_DTYPE, _check_model, _check_taps, _output, _real_np, restored_state,
+    DEFAULT_DTYPE, _check_model, _check_taps, _check_tip_wcov, _output, _real_np,
+    restored_state,
 )
-from .models import five as _five
-from .models import tip as _tip
-from .models import tiss as _tiss
-from .models.auxiva_pca import auxiva_pca_run
-from .models.family import run_family
 from .models.online_iss import online_iss_init, online_iss_step
 from .models.online_tiss import online_tiss_init, online_tiss_step
-from .models.overiva import demix, fold_mixtures, unfold_mixtures
 from .ops import stft as _stft
-from .ops.projection import apply_projection_back
 from .oracle.stft import hann, stft_pad, synthesis_window
 from .parallel.collectives import assemble
 from .parallel.mesh import AXIS_MIX, axis_size
@@ -108,29 +104,6 @@ SERVABLE = (
     "tip-gauss",
 )
 
-# registry name -> (fused branch, default model). Every SERVABLE family has
-# a branch in _spectral below. "pca" resolves to pca_ip / pca_iss from the
-# ``inner`` kwarg at Separator construction.
-_FUSED_BRANCH = {
-    "auxiva": ("ip", "laplace"),
-    "auxiva-gauss": ("ip", "gauss"),
-    "auxiva-iss": ("iss", "laplace"),
-    "auxiva-iss-gauss": ("iss", "gauss"),
-    "overiva": ("ip", "laplace"),
-    "overiva-gauss": ("ip", "gauss"),
-    "overiva-iss": ("iss", "laplace"),
-    "overiva-iss-gauss": ("iss", "gauss"),
-    "overiva-ip2": ("ip2", "laplace"),
-    "overiva-ip2-gauss": ("ip2", "gauss"),
-    "auxiva_pca": ("pca", "laplace"),
-    "auxiva_pca-iss": ("pca", "laplace"),
-    "five": ("five", "laplace"),
-    "tiss": ("tiss", "laplace"),
-    "tiss-gauss": ("tiss", "gauss"),
-    "tip": ("tip", "laplace"),
-    "tip-gauss": ("tip", "gauss"),
-}
-
 
 def bucket_frames(
     n_frames: int,
@@ -155,86 +128,12 @@ def bucket_frames(
 
 # ------------------------------------------------------------ the clip path
 
-def _spectral(X, n_src, n_iter, model, branch, taps, delay, warm_iter, wcov, n_mix=1):
-    """Masked STFT (T, F, M) in -> projected sources (T, F, n_out) out.
-
-    Each branch starts and iterates as its registry runner does, through
-    the same model functions (``run_family`` for ip, ip2 and iss,
-    ``auxiva_pca_run`` for the PCA pair), so the clip path runs the
-    unpadded pipeline's trajectory. ``n_mix`` > 1: X holds that many
-    folded clips (``fold_mixtures``), each with its own activations; the
-    batch forms have no ``wcov`` tier, so a folded X runs f32 only.
-    """
-    M = X.shape[2]
-    N = M if n_src is None else int(n_src)
-    if branch in ("ip", "ip2", "iss"):
-        # ip/ip2: Cx only when N < M (models/overiva.py::prepare);
-        # iss: from the identity
-        Y, _ = run_family(X, N, n_iter, model, branch, wcov=wcov, n_mix=n_mix)
-    elif branch in ("pca_ip", "pca_iss"):
-        Y, _ = auxiva_pca_run(X, N, n_iter, model, inner=branch[4:], n_mix=n_mix)
-    elif branch == "five":
-        Xw, _ = _five.five_whiten(X)
-        # from e_0 in the whitened domain, as api.five starts
-        w = _five.five_iterations(Xw, _five.five_init(Xw), n_iter, model, n_mix)
-        Y = _five.five_demix(Xw, w)[:, :, None]
-    elif branch in ("tiss", "tip"):
-        with span("family.start", mats=0):
-            Xt = _tiss.augment_taps(X, taps, delay)
-            P = _tiss.augmented_eye(Xt, M)
-            Y = demix(Xt, P) if branch == "tiss" else None
-        if branch == "tiss":
-            _, Y = _tiss.tiss_iterations(Xt, P, n_iter, model, M, N, Y=Y, n_mix=n_mix)
-        else:
-            if warm_iter > 0 and taps > 0:  # api.tip's built-in warm start
-                P, _ = _tiss.tiss_iterations(Xt, P, warm_iter, model, M, N, n_mix=n_mix)
-            P = _tip.tip_iterations(Xt, P, n_iter, model, M, N, wcov, n_mix=n_mix)
-            Y = demix(Xt, P)
-        Y = Y[:, :, :N]
-    else:
-        raise ValueError(f"unknown fused branch {branch!r}")
-    # projection back against the masked reference channel: this is what
-    # cancels the bucket-dependent covariance scale
-    with span("api.proj_back", bins=Y.shape[1]):
-        return apply_projection_back(Y, X[:, :, 0])
-
-
 def _pcm16(y):
     """Quantize separated float samples to int16 PCM on the device:
     round half to even at scale 32768 (``torch.round`` rounds as
     ``np.round`` does), then saturate before the cast, so the values are
     those a host-side wav writer produces."""
     return torch.clamp(torch.round(y * 32768.0), -32768.0, 32767.0).to(torch.int16)
-
-
-def _masked_clip(x, t_pad, nfft, hop, cfg, win, win_s, pcm_out=False):
-    """Bucketed samples on the device -> separated samples (or int16 PCM).
-
-    x: (n_bucket, M), or (B, n_bucket, M) for a group of clips; int16 is
-    widened and scaled by 2^-15 here, both exact, so it gives the values
-    of ``x.astype(rd) / 32768``. ``t_pad``: the padded frame count, a
-    Python int (or 0-d tensor) for one clip, a (B,) tensor for a group.
-    """
-    B = x.shape[0] if x.ndim == 3 else 1
-    n_frames = B * _n_frames(x.shape[-2], nfft, hop)
-    with span("serve.analysis", frames=n_frames, bins=B * (nfft // 2 + 1)):
-        if not x.is_floating_point():
-            x = x.to(win.dtype) * (1.0 / 32768.0)
-        X = _stft.analysis(x, nfft, hop, win)
-        # the last prepended frames straddle the padding/real boundary (hop
-        # overlap): zero every padded frame in the STFT domain, so that
-        # padded frames are exactly zero, as the invariance argument needs
-        frames = torch.arange(X.shape[-3], device=X.device)
-        zero = torch.zeros((), dtype=X.dtype, device=X.device)
-        keep = frames[None, :] >= t_pad[:, None] if X.ndim == 4 else frames >= t_pad
-        X = torch.where(keep[..., None, None], X, zero)
-    if X.ndim == 4:
-        Y = unfold_mixtures(_spectral(fold_mixtures(X), n_mix=B, **cfg), B)
-    else:
-        Y = _spectral(X, **cfg)
-    with span("serve.synthesis", frames=n_frames):
-        y = _stft.synthesis(Y, nfft, hop, win_s)
-        return _pcm16(y) if pcm_out else y
 
 
 def _is_int16(x):
@@ -272,17 +171,16 @@ class Separator:
     model, wcov, ...). ``proj_back=False`` is refused: projection back is
     what cancels the bucket-dependent global scale (module docstring).
 
-    Every SERVABLE family runs through the device-resident clip path: the
-    samples go up once, everything from analysis to synthesis runs on the
-    device without reading a value back, and the separated samples come
-    down once. A NumPy clip gives a NumPy result, a tensor a tensor on
-    ``device``. int16 PCM input is uploaded as int16 and scaled 1/32768
-    on the device, bit-identical to the float path; ``out_dtype=np.int16``
-    quantizes the output on the device (round half to even at 32768,
-    saturating), as a wav writer would on the host. Kwargs outside the
-    fused surface (callback, W0, return_filters, chunk_frames, acc, ...)
-    and ``allow_unverified`` algorithms go through the registry runner
-    instead, on the same device.
+    Every clip runs one path (:meth:`_separate_host`): the samples go up
+    once, everything from analysis to synthesis runs on the device without
+    reading a value back, and the separated samples come down once. The
+    algorithm is the registry's runner with ``algo_kwargs``: its
+    ``run_batch`` for a group of clips, the runner itself for one clip. A
+    NumPy clip gives a NumPy result, a tensor a tensor on ``device``.
+    int16 PCM input is uploaded as int16 and scaled 1/32768 on the device,
+    bit-identical to the float path; ``out_dtype=np.int16`` quantizes the
+    output on the device (round half to even at 32768, saturating), as a
+    wav writer would on the host.
 
     ``device`` as in :func:`overiva_tpu_torch.resolve_device` (default
     CUDA; without a card pass ``device="cpu"``).
@@ -294,21 +192,9 @@ class Separator:
     through the meshless group code (clips are independent: no collective
     in the compute), and one all-reduce of zero-filled blocks over the
     'mix' group hands every rank every clip; the pad lanes are dropped.
-    Per-clip results equal the meshless path's. Requires a fused branch;
-    ``separate()`` (one clip) is unaffected.
+    Per-clip results equal the meshless path's. Requires a SERVABLE
+    algorithm; ``separate()`` (one clip) is unaffected.
     """
-
-    # kwargs each fused branch accepts (beyond n_iter/model, always taken)
-    _BRANCH_KW = {
-        "ip": {"wcov"},
-        "ip2": {"wcov"},
-        "iss": set(),
-        "pca_ip": set(),
-        "pca_iss": set(),
-        "five": set(),
-        "tiss": {"taps", "delay"},
-        "tip": {"taps", "delay", "warm_iter", "wcov"},
-    }
 
     def __init__(
         self,
@@ -345,6 +231,8 @@ class Separator:
             raise ValueError(
                 f"out_dtype must be None (float) or int16, got {out_dtype!r}"
             )
+        if algo.startswith("tip"):  # T-IP refuses bf16pack
+            _check_tip_wcov(algo_kwargs.get("wcov", "f32"))
         self.algo = algo
         self.n_src = n_src
         self.nfft = int(nfft)
@@ -355,13 +243,19 @@ class Separator:
         self.bucket_ratio = float(bucket_ratio)
         self.bucket_multiple = int(bucket_multiple)
         self.algo_kwargs = dict(algo_kwargs)
-        self._fused = self._fused_config()
+        # the runner's kwargs: a clip runs them all; the batch forms have no
+        # wcov tier, so a config with one other than "f32" runs its groups
+        # clip by clip, and "f32" is dropped before a batch call
+        self._kw = dict(algo_kwargs)
+        if dtype is not None:
+            self._kw.setdefault("dtype", dtype)
+        self._per_clip = str(self._kw.get("wcov", "f32")) != "f32"
+        self._batch_kw = {k: v for k, v in self._kw.items() if k != "wcov"}
         if mesh is not None:
-            if self._fused is None:
+            if algo not in SERVABLE:
                 raise ValueError(
-                    "mesh serving requires a fused branch: "
-                    f"{algo!r} with these kwargs runs through the registry "
-                    "runner (no batch axis to shard)"
+                    f"mesh serving takes SERVABLE algorithms only; {algo!r} "
+                    "is served only with allow_unverified=True"
                 )
             if AXIS_MIX not in (getattr(mesh, "mesh_dim_names", None) or ()):
                 raise ValueError(
@@ -379,8 +273,7 @@ class Separator:
         self.mesh = mesh
         self.device = resolve_device(device)
         self._rdt = to_torch_dtype(dtype or DEFAULT_DTYPE).to_real()
-        # the windows live on the device, built once: nothing in a clip's
-        # run copies from the host
+        # the windows live on the device, built once for every clip
         win = hann(self.nfft)
         self._win = torch.as_tensor(win, dtype=self._rdt).to(self.device)
         self._win_s = torch.as_tensor(synthesis_window(win, self.hop),
@@ -391,46 +284,6 @@ class Separator:
             "frames_padded": 0,
             "bucket_hits": Counter(),
         }
-
-    def _fused_config(self) -> dict | None:
-        """Static config of the device-resident path, or None -> registry
-        runner."""
-        ent = _FUSED_BRANCH.get(self.algo)
-        if ent is None:
-            return None
-        branch, model = ent
-        params = {**self.spec.defaults, **self.algo_kwargs}
-        params.pop("proj_back", None)  # always True here (checked above)
-        if branch == "pca":
-            inner = params.pop("inner", "ip")
-            if inner not in ("ip", "iss"):
-                return None
-            branch = f"pca_{inner}"
-        allowed = self._BRANCH_KW[branch]
-        cfg = dict(
-            branch=branch,
-            model=str(params.pop("model", model)),
-            n_iter=int(params.pop("n_iter", 20)),
-            taps=int(params.pop("taps", 0)) if "taps" in allowed else 0,
-            delay=int(params.pop("delay", 2)) if "delay" in allowed else 2,
-            warm_iter=(
-                int(params.pop("warm_iter", 0)) if "warm_iter" in allowed else 0
-            ),
-            wcov=str(params.pop("wcov", "f32")) if "wcov" in allowed else "f32",
-        )
-        if params:  # kwargs outside the fused surface -> registry runner
-            return None
-        if cfg["branch"] == "tip" and cfg["wcov"] == "bf16pack":
-            raise ValueError(
-                "wcov='bf16pack' is untested on the tap-augmented epochs "
-                "— use wcov='bf16' for T-IP serving"
-            )
-        return cfg
-
-    @property
-    def fused(self) -> bool:
-        """Whether clips run through the device-resident clip path."""
-        return self._fused is not None
 
     # -- bucket plumbing ---------------------------------------------------
 
@@ -520,19 +373,11 @@ class Separator:
         n, n_chan = x.shape
         t_real, _, t_pad, n_bucket = self._prep_clip(n)
         with span("serve.separate", clips=1, frames_real=t_real, frames_padded=t_pad):
-            if _is_int16(x) and self._fused is None:
-                # the registry runner has no cast stage: convert first
-                x = self._to_float(x)
             with span("serve.upload", bytes=_host_nbytes(x)):
                 xd = self._upload(x)
                 xb = xd.new_zeros((n_bucket, n_chan))
                 self._place(xb, xd, t_pad)
-            if self._fused is None:
-                y = self._separate_host(xb[None], [t_pad], batch=False)[0]
-            else:
-                y = _masked_clip(xb, t_pad, self.nfft, self.hop,
-                                 dict(n_src=self.n_src, **self._fused), self._win,
-                                 self._win_s, self.pcm_out)
+            y = self._separate_host(xb[None], [t_pad], batch=False)[0]
             self._count(t_real, t_pad, n_chan)
             start = self._start(t_pad)
             y = y[start : start + n]
@@ -542,59 +387,68 @@ class Separator:
                 return _output(y, True)
 
     def _separate_host(self, xb, t_pads, batch=True):
-        """The registry runner's path (``allow_unverified`` algorithms,
-        kwargs outside the fused surface): bucketed clips (B, n_bucket, M)
-        through ``stft_analysis_batch``, the padded frames zeroed, the
-        runner's ``run_batch`` (``__call__`` for one clip of
-        :meth:`separate`, ``batch=False``) and ``stft_synthesis_batch``,
-        on the Separator's device."""
-        kw = dict(self.algo_kwargs)
-        if self.dtype is not None:
-            kw.setdefault("dtype", self.dtype)
+        """The clip path of every clip and group: bucketed samples on the
+        device (B, n_bucket, M), int16 PCM or the working real dtype, with
+        each clip's padded frame count (a sequence of B ints) -> the
+        separated buckets (B, n_synth, n_out) on the device, n_synth the
+        samples synthesis gives back, int16 when ``out_dtype=np.int16``.
+
+        In order: int16 scaled by 2^-15 (exact), analysis with the cached
+        window, every padded frame zeroed by one ``torch.where``, the
+        registry's runner (``run_batch`` on the group when ``batch``, else
+        the runner on each clip: :meth:`separate`'s one clip, and each clip
+        of a group whose ``wcov`` tier the batch forms lack), synthesis
+        with the cached dual window, the int16 quantization. Nothing is
+        read back to the host. The name is older than this path; the
+        benchmark's ``half_batch`` fault patches the method by it."""
         B = xb.shape[0]
         n_frames = B * _n_frames(xb.shape[1], self.nfft, self.hop)
         with span("serve.analysis", frames=n_frames, bins=B * (self.nfft // 2 + 1)):
-            X = api.stft_analysis_batch(xb, self.nfft, self.hop, dtype=self.dtype)
-            for b, t_pad in enumerate(t_pads):
-                X[b, :t_pad] = 0.0
-        if not batch:
-            Y = self.spec(X[0], n_src=self.n_src, **kw)
-            if isinstance(Y, tuple):  # return_filters=True passthrough
-                Y = Y[0]
-            Y = Y[None]
+            if not xb.is_floating_point():
+                xb = xb.to(self._rdt) * (1.0 / 32768.0)
+            X = _stft.analysis(xb, self.nfft, self.hop, self._win)
+            # the last prepended frames straddle the padding/real boundary (hop
+            # overlap): zero every padded frame in the STFT domain, so that
+            # padded frames are exactly zero, as the invariance argument needs.
+            # The mask goes up in one asynchronous copy: CUDA stages a copy
+            # from pageable memory before the call returns, so it waits for
+            # nothing on the device and the host array may go at once
+            keep = np.arange(X.shape[1]) >= np.asarray(t_pads)[:, None]
+            keep = torch.from_numpy(keep).to(X.device, non_blocking=True)
+            X = torch.where(keep[:, :, None, None], X, 0.0)
+        if batch and not self._per_clip:
+            Y = self.spec.run_batch(X, n_src=self.n_src, **self._batch_kw)
         else:
-            Y = self.spec.run_batch(X, n_src=self.n_src, **kw)
+            ys = [self.spec(Xc, n_src=self.n_src, **self._kw) for Xc in X]
+            # return_filters=True passes (Y, filters) through: keep Y
+            ys = [y[0] if isinstance(y, tuple) else y for y in ys]
+            Y = ys[0][None] if B == 1 else torch.stack(ys)  # one clip: a view
         if Y.ndim == 3:  # single-output extractors return (B, T, F)
             Y = Y[..., None]
         with span("serve.synthesis", frames=n_frames):
-            y = api.stft_synthesis_batch(Y, self.nfft, self.hop, dtype=self.dtype)
+            y = _stft.synthesis(Y, self.nfft, self.hop, self._win_s)
             return _pcm16(y) if self.pcm_out else y
 
     def separate_batch(self, clips) -> list:
         """Separate a sequence of clips, running same-bucket clips together.
 
-        Clips are grouped by (frame bucket, n_chan), and a group of the
-        device-resident path runs as one batched program: the clips'
-        STFTs folded into the bin axis (``fold_mixtures``), per-clip frame
-        masks and activations, so a traffic mix of similar lengths pays
-        one run per bucket instead of one per clip. The batch forms have
-        no ``wcov`` tier: a group whose config carries ``wcov`` other than
-        "f32" (``bf16pack`` included) runs its clips one by one, as
-        :meth:`separate` runs each, so its results equal the per-clip ones
-        by construction and ``wcov_packed`` runs once an epoch for each
-        clip. With a ``mesh``, each rank runs its lanes of every group
-        (:meth:`_run_group_mesh`). Without a fused branch, groups go
-        through the registry ``run_batch``. Returns outputs in input
-        order, each NumPy or a tensor as its clip was.
+        Clips are grouped by (frame bucket, n_chan), and a group runs as
+        one call of the registry's ``run_batch``: the batch forms fold the
+        clips' STFTs into the bin axis (``fold_mixtures``), with per-clip
+        frame masks and activations, so a traffic mix of similar lengths
+        pays one run per bucket instead of one per clip. The batch forms
+        have no ``wcov`` tier: a group whose config carries ``wcov`` other
+        than "f32" (``bf16pack`` included) runs the runner on its clips one
+        by one, as :meth:`separate` runs each, and ``wcov_packed`` runs
+        once an epoch for each clip. With a ``mesh``, each rank runs its
+        lanes of every group (:meth:`_run_group_mesh`). Returns outputs in
+        input order, each NumPy or a tensor as its clip was.
         """
         clips = [self._clip2d(c, i) for i, c in enumerate(clips)]
         prepped = [self._prep_clip(x.shape[0]) for x in clips]
         with span("serve.separate_batch", clips=len(clips),
                   frames_real=sum(p[0] for p in prepped),
                   frames_padded=sum(p[2] for p in prepped)):
-            if self._fused is None:
-                # the registry runner has no cast stage (see separate())
-                clips = [self._to_float(c) if _is_int16(c) else c for c in clips]
             groups: dict[tuple[int, int], list[int]] = {}
             for i, x in enumerate(clips):
                 groups.setdefault((prepped[i][1], x.shape[1]), []).append(i)
@@ -604,13 +458,8 @@ class Separator:
                 # all-int16 groups ride the int16 upload; mixed groups
                 # convert their int16 members exactly (1/32768) first
                 all_i16 = all(_is_int16(clips[i]) for i in idxs)
-                if self._fused is None:
-                    xb = self._group_bucket(clips, idxs, prepped, n_chan, all_i16)
-                    ys = self._separate_host(xb, [prepped[i][2] for i in idxs])
-                elif self.mesh is None:
-                    ys = self._run_group(clips, idxs, prepped, n_chan, all_i16)
-                else:
-                    ys = self._run_group_mesh(clips, idxs, prepped, n_chan, all_i16)
+                run = self._run_group if self.mesh is None else self._run_group_mesh
+                ys = run(clips, idxs, prepped, n_chan, all_i16)
                 # one download for the group when any of its clips is NumPy
                 host = None
                 if any(not isinstance(clips[i], torch.Tensor) for i in idxs):
@@ -637,22 +486,10 @@ class Separator:
             return xb
 
     def _run_group(self, clips, idxs, prepped, n_chan, all_i16):
-        """The separated buckets (len(idxs), n_bucket, n_out) of the clips
-        ``idxs`` through the device-resident path: folded into one run, or
-        clip by clip when the config carries a ``wcov`` tier (the batch
-        forms have none)."""
+        """The separated buckets of the clips ``idxs``, uploaded into one
+        bucket tensor and run as one group by :meth:`_separate_host`."""
         xb = self._group_bucket(clips, idxs, prepped, n_chan, all_i16)
-        cfg = dict(n_src=self.n_src, **self._fused)
-        t_pads = [prepped[i][2] for i in idxs]
-        if self._fused["wcov"] != "f32":
-            return torch.stack([
-                _masked_clip(x, t_pad, self.nfft, self.hop, cfg, self._win, self._win_s,
-                             self.pcm_out)
-                for x, t_pad in zip(xb, t_pads)
-            ])
-        tp = torch.tensor(t_pads, device=self.device)
-        return _masked_clip(xb, tp, self.nfft, self.hop, cfg, self._win, self._win_s,
-                            self.pcm_out)
+        return self._separate_host(xb, [prepped[i][2] for i in idxs])
 
     def _run_group_mesh(self, clips, idxs, prepped, n_chan, all_i16):
         """:meth:`_run_group` over the mesh's 'mix' axis: the group padded

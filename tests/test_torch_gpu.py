@@ -974,7 +974,8 @@ def test_separator_tiss_m8n2_taps5_group_on_card(cuda):
     nfft=1024, hop=512, n_iter=30, taps=5, delay=2)``, M=8, complex64): a
     group of 8 of its rooms folded into one run on the card scores within
     0.1 dB SDR and SIR of the same group at complex128 on the CPU, and
-    the device-resident clip path of a group syncs no host."""
+    the clip path of a group (``Separator._separate_host``) syncs no host
+    and gives ``separate_batch``'s samples bit for bit."""
     import json
     from pathlib import Path
 
@@ -1004,12 +1005,11 @@ def test_separator_tiss_m8n2_taps5_group_on_card(cuda):
     idxs = list(range(8))
     prepped = [sep._prep_clip(x.shape[0]) for x in mixes]
     xb = sep._group_bucket(mixes, idxs, prepped, cfg["n_chan"], False)
-    tp = torch.tensor([p[2] for p in prepped], device=cuda)
-    fused = dict(n_src=sep.n_src, **sep._fused)
+    t_pads = [p[2] for p in prepped]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        yb = serving._masked_clip(xb, tp, sep.nfft, sep.hop, fused, sep._win, sep._win_s)
+        yb = sep._separate_host(xb, t_pads)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     start = sep._start(prepped[0][2])

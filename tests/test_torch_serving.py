@@ -2,18 +2,21 @@
 frame-bucket grid, against the JAX package on the CPU.
 
 Gates:
-- the grid (``bucket_frames``) and the tables (``SERVABLE``,
-  ``_FUSED_BRANCH``, ``_BRANCH_KW``) equal the JAX package's;
-- one case per fused branch, complex128, against the JAX ``Separator``
-  at rtol 1e-9, atol 1e-12 of the largest sample, with the same ``stats``;
+- the grid (``bucket_frames``) and ``SERVABLE`` equal the JAX package's;
+- one case per family of the JAX package's fused branches, complex128,
+  against the JAX ``Separator`` at rtol 1e-9, atol 1e-12 of the largest
+  sample, with the same ``stats``;
   ``wcov="bf16pack"`` at complex64 against the JAX package's
   interpret-mode Pallas kernel (tolerance below);
 - padding invariance of all 17 SERVABLE names against the port's own
   unpadded pipeline (the JAX package's gates, tests/test_serving.py:
   rtol 1e-6, atol 1e-8 of the largest sample), also at a quarter hop;
-- ``separate_batch`` equals per-clip (rtol 1e-9; a bf16pack group
-  exactly), the int16 tiers bit for bit, the registry-runner fallback,
-  the refusals, ``warmup``'s bucket count and ``stats`` against JAX.
+- ``separate_batch`` equals per-clip for each of those cases, its groups
+  through the registry's ``run_batch`` (rtol 1e-9; a bf16pack group
+  exactly), the int16 tiers bit for bit (an ``allow_unverified`` family's
+  too), kwargs no batch form takes, the refusals, one start and
+  ``n_iter`` epoch spans for a T-ISS group and ``api.tiss``, ``warmup``'s
+  bucket count and ``stats`` against JAX.
 """
 
 import numpy as np
@@ -22,9 +25,9 @@ import torch
 
 from overiva_tpu import serving as jserving
 from overiva_tpu_torch import api as tapi
-from overiva_tpu_torch import serving as tserving
 from overiva_tpu_torch.oracle import stft_pad
-from overiva_tpu_torch.registry import get_algorithm
+from overiva_tpu_torch.registry import AlgorithmSpec, get_algorithm
+from overiva_tpu_torch.utils import profiling
 from overiva_tpu_torch.serving import SERVABLE, Separator, bucket_frames
 
 from helpers import make_mixture
@@ -92,11 +95,9 @@ def test_bucket_frames_match_jax(grid):
 
 def test_tables_match_jax():
     assert SERVABLE == jserving.SERVABLE
-    assert tserving._FUSED_BRANCH == jserving._FUSED_BRANCH
-    assert Separator._BRANCH_KW == jserving.Separator._BRANCH_KW
 
 
-FUSED_CASES = [
+CASES = [
     ("overiva", 2, {}),
     ("overiva-ip2", 2, {}),
     ("auxiva-iss", None, {}),
@@ -108,14 +109,13 @@ FUSED_CASES = [
 ]
 
 
-@pytest.mark.parametrize("algo,n_src,kw", FUSED_CASES, ids=[c[0] for c in FUSED_CASES])
+@pytest.mark.parametrize("algo,n_src,kw", CASES, ids=[c[0] for c in CASES])
 def test_port_matches_jax(mixture, algo, n_src, kw):
-    """One fused branch at complex128 against the JAX Separator, and the
-    same bookkeeping."""
+    """One family at complex128 against the JAX Separator (its fused
+    branch there, the registry's runner here), and the same bookkeeping."""
     args = dict(n_src=n_src, nfft=NFFT, hop=HOP, n_iter=4, dtype=C128, **kw)
     jsep = jserving.Separator(algo, **args)
     sep = Separator(algo, device="cpu", **args)
-    assert sep.fused and sep._fused == jsep._fused
     _close(sep.separate(mixture), jsep.separate(mixture), 1e-9, 1e-12)
     assert sep.stats == jsep.stats and sep.stats["frames_padded"] > 0
 
@@ -133,7 +133,6 @@ def test_padding_invariance(algo, mixture):
     spec = get_algorithm(algo)
     n_src = _n_src_for(spec)
     sep = _sep(algo, n_src=n_src, n_iter=6, dtype=C128)
-    assert sep.fused
     got = sep.separate(mixture)
     # the bucket must actually pad, or the test proves nothing
     assert sep.stats["frames_padded"] > 0
@@ -154,17 +153,29 @@ def test_padding_invariance_quarter_hop(algo, mixture):
     _close(got, _unpadded(get_algorithm(algo), mixture, 2, hop=hop, **kw), 1e-6, 1e-8)
 
 
-def test_separate_batch_matches_per_clip(mixture):
+@pytest.mark.parametrize("algo,n_src,kw", CASES, ids=[c[0] for c in CASES])
+def test_separate_batch_matches_per_clip(mixture, monkeypatch, algo, n_src, kw):
     """A group of two (3600 and 3900 samples share a bucket) and a group
-    of one; tensors in give tensors out."""
-    sep = _sep("overiva", n_src=2, dtype=C128, n_iter=4)
+    of one, each through the registry's ``run_batch``; tensors in give
+    tensors out."""
+    batches = []
+    run_batch = AlgorithmSpec.run_batch
+
+    def counted(spec, X, **k):
+        batches.append(X.shape[0])
+        return run_batch(spec, X, **k)
+
+    monkeypatch.setattr(AlgorithmSpec, "run_batch", counted)
+    sep = _sep(algo, n_src=n_src, dtype=C128, n_iter=4, **kw)
     clips = [mixture[:3600], mixture[:2000], torch.from_numpy(mixture[:3900])]
     outs = sep.separate_batch(clips)
     assert sep.n_buckets() == 2 and sep.stats["clips"] == 3
+    assert sorted(batches) == [1, 2]
     assert isinstance(outs[2], torch.Tensor)
-    ref = _sep("overiva", n_src=2, dtype=C128, n_iter=4)
+    ref = _sep(algo, n_src=n_src, dtype=C128, n_iter=4, **kw)
+    n_out = 1 if get_algorithm(algo).single_output else (n_src or mixture.shape[1])
     for c, o in zip(clips, outs):
-        assert o.shape == (c.shape[0], 2)
+        assert o.shape == (c.shape[0], n_out)
         _close(np.asarray(o), np.asarray(ref.separate(c)), 1e-9, 1e-12)
 
 
@@ -214,15 +225,15 @@ def test_int16_input_tier_exact(mixture):
 
 def test_int16_output_tier(mixture):
     """out_dtype=np.int16 quantizes on the device exactly as a host wav
-    writer would (round half to even at 32768, saturating), on the fused,
-    batched and registry-runner paths."""
+    writer would (round half to even at 32768, saturating), for one clip, a
+    group, and a kwarg that only the single-clip runner takes."""
     x = mixture[: 5 * NFFT]
     kw = dict(n_src=2, n_iter=4, dtype=C128)
     for extra in ({}, {"chunk_frames": 16}):
         y_f = _sep("overiva", **kw, **extra).separate(x)
         sep_i = _sep("overiva", out_dtype=np.int16, **kw, **extra)
         y_i = sep_i.separate(x)
-        assert y_i.dtype == np.int16 and sep_i.fused == (not extra)
+        assert y_i.dtype == np.int16
         want = np.clip(np.round(y_f * 32768.0), -32768.0, 32767.0).astype(np.int16)
         np.testing.assert_array_equal(y_i, want)
     outs = _sep("overiva", out_dtype=np.int16, **kw).separate_batch([x, x[:-HOP]])
@@ -235,8 +246,9 @@ def test_int16_output_tier(mixture):
 
 
 def test_kwargs_outside_the_fused_surface_use_the_registry_runner(mixture):
+    """A kwarg that only the single-clip runner takes (chunk_frames) serves
+    one clip as the unpadded pipeline does."""
     sep = _sep("overiva", n_src=2, n_iter=4, dtype=C128, chunk_frames=16)
-    assert not sep.fused
     got = sep.separate(mixture)
     want = _unpadded(get_algorithm("overiva"), mixture, 2, n_iter=4, chunk_frames=16)
     _close(got, want, 1e-6, 1e-8)
@@ -251,7 +263,7 @@ def test_refusals(mixture):
         _sep("tip", n_src=2, wcov="bf16pack")
     with pytest.raises(ValueError, match="'mix' axis"):
         _sep("overiva", n_src=2, mesh=object())
-    with pytest.raises(ValueError, match="fused branch"):
+    with pytest.raises(ValueError, match="SERVABLE algorithms only"):
         _sep("ilrma", allow_unverified=True, mesh=object())
     with pytest.raises(ValueError, match="one source"):
         _sep("five", n_src=2)
@@ -261,14 +273,47 @@ def test_refusals(mixture):
 
 def test_allow_unverified_smoke(mixture):
     """An NMF family still runs on the bucket path when explicitly allowed,
-    through the registry runner, single clips and groups."""
+    single clips and groups."""
     sep = _sep("ilrma", dtype=C128, n_iter=3, allow_unverified=True)
-    assert not sep.fused
     y = sep.separate(mixture)
     assert y.shape == (mixture.shape[0], 3) and np.isfinite(y).all()
     outs = sep.separate_batch([mixture[:3600], _pcm(mixture)])
     assert [o.shape for o in outs] == [(3600, 3), (5 * NFFT, 3)]
     assert all(np.isfinite(o).all() for o in outs)
+
+
+def test_int16_input_tier_exact_unverified(mixture):
+    """An allow_unverified family takes int16 PCM on the device as the
+    others do: bit-identical to x.astype(rd) / 32768, for one clip (NumPy
+    or a tensor) and for a group."""
+    sep = _sep("ilrma", dtype=C128, n_iter=3, allow_unverified=True)
+    x_i = _pcm(mixture)
+    x_f = x_i.astype(np.float64) / 32768
+    np.testing.assert_array_equal(sep.separate(x_i), sep.separate(x_f))
+    np.testing.assert_array_equal(sep.separate(torch.from_numpy(x_i)).numpy(),
+                                  sep.separate(x_f))
+    short = x_i.shape[0] - HOP
+    for a, b in zip(sep.separate_batch([x_i, x_i[:short]]),
+                    sep.separate_batch([x_f, x_f[:short]])):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("how", ["separate_batch", "api.tiss"])
+def test_tiss_one_start(mixture, how):
+    """A Separator("tiss") group and an api.tiss call each open one
+    family.start and n_iter family.epoch spans."""
+    kw = dict(n_iter=3, taps=2, delay=1)
+    with profiling.tracing() as tr:
+        if how == "api.tiss":
+            X = tapi.stft_analysis(stft_pad(mixture, NFFT, HOP), NFFT, HOP, device="cpu")
+            tapi.tiss(X, n_src=2, device="cpu", **kw)
+        else:
+            _sep("tiss", n_src=2, **kw).separate_batch([mixture[:3600], mixture[:3900]])
+    names = [s["name"] for s in tr.spans]
+    assert names.count("family.start") == 1 and names.count("family.epoch") == kw["n_iter"]
+    start = tr.spans[names.index("family.start")]
+    assert start["counts"] == {"mats": 0}
+    assert names.index("family.start") < names.index("family.epoch")
 
 
 def test_warmup_and_stats_match_jax(mixture, monkeypatch):
