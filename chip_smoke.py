@@ -30,6 +30,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    at the ``tiss_batch`` cell's shapes (T=192, 8 folded rooms of 513 bins,
    M=8, MK=40, Z read in place from the augmented input) and at ragged
    ones, with the kernel's and the plain version's times and the bound;
+3e. sources: ``iss_steps`` (one ISS or T-ISS epoch's M source-steering
+   steps in one launch) against its plain version and the plain version at
+   complex128, at the ``tiss_batch`` cell's shapes (T=192 with 189 real
+   frames, 8 folded rooms of 513 bins, M=8, J=48) and at ragged ones
+   (square rows, other M and T), with the kernel's time queued behind a
+   device-side sleep, the plain version's time, the bound, and every
+   instantiation's registers and spills from the build (none may spill);
 4. trajectory: OverIVA in complex128 on the card against the float64 NumPy
    oracle at full width (M=8, N=3, nfft 4096, T=128), 10 iterations;
 5. main path: stft_analysis -> overiva (wcov="f32" and "bf16pack", complex64,
@@ -171,7 +178,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    once an epoch of the complex64 f32 and f32x3 IP rows
    (``bench_ip_epochs``).
 
-Each phase ends with a ``[time]`` line, its wall in seconds.
+Each phase ends with a ``[time]`` line, its wall in seconds, and the
+launches it made of ``iss_steps`` and ``tap_steps``, the ISS and T-ISS
+kernels, which the kernels line gives phase by phase. Those counts are
+gated: 0 in the IP-only phases 4, 5 and 6; in each ``separate`` call of
+phases 7 and 9 and in the joint runs of phase 9 one of each kernel an
+epoch that runs it (an ISS epoch ``iss_steps``, a T-ISS epoch both, T-IP's
+warm T-ISS epochs both), and none where the route cannot hold (complex128,
+over 256 frames).
 
 The second-to-last line is a JSON object of the kernels, the last line
 ``{"ok": true, "device": {...}}``. The float64 oracle and bss_eval are the
@@ -288,6 +302,14 @@ def tap_steps_bound(T, BF, B, m, MK):
     output, step): phi z, the two sums, the update."""
     n_bytes = 8 * T * BF * MK + 2 * 8 * T * BF * m + 4 * T * B * m + 8 * BF * m * MK
     return bound(n_bytes, 22 * T * BF * m * MK, F32_FLOPS)
+
+
+def iss_steps_bound(T, BF, B, m, J):
+    """Y read and written once, W read and written once, phi read
+    (``benchmark/roofline_sources.py``'s bytes); 22 flops per (t, bin,
+    output, step): phi y_n, the two sums, the update."""
+    n_bytes = 2 * 8 * T * BF * m + 2 * 8 * BF * m * J + 4 * T * B * m
+    return bound(n_bytes, 22 * T * BF * m * m, F32_FLOPS)
 
 
 # ----------------------------------------------------------------- timing
@@ -599,6 +621,62 @@ def phase_tap_kernel(dev, seed):
             )
             result = {"max_rel_err": max(errs[:2]), "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        log(line)
+    return result
+
+
+def phase_source_kernel(dev, seed):
+    from overiva_tpu_torch import _build
+    from overiva_tpu_torch.ops.iss_steps import iss_steps, iss_steps_reference
+
+    with open(f"{_build.build_library()}.log") as f:
+        regs = [r for r in _build.ptxas_summary(f.read()) if r.startswith("iss_steps_kernel")]
+    log("[sources] build: " + " | ".join(regs))
+    spilled = [r for r in regs if "0 B spill stores, 0 B spill loads" not in r]
+    if not regs or spilled:
+        raise AssertionError(f"iss_steps_kernel spills or is missing: {spilled or regs}")
+    rng = np.random.default_rng(seed + 5)
+    result = {"ptxas": regs}
+    for T, real, B, F, m, J, timed in [
+        (192, 189, 8, 513, 8, 48, True),  # the tiss_batch cell
+        (192, 189, 8, 513, 8, 8, False), (56, 56, 1, 2049, 8, 8, False),
+        (100, 97, 3, 65, 5, 30, False), (77, 77, 1, 129, 3, 3, False),
+        (256, 250, 1, 129, 2, 12, False),
+    ]:
+        BF = B * F
+
+        def cplx(*shape):
+            z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+            return torch.from_numpy(z.astype(np.complex64)).to(dev)
+
+        W, Y = cplx(BF, m, J), cplx(T, BF, m)
+        Y[real:] = 0  # the bucket's padded frames
+        phi = torch.from_numpy((rng.random((T, B, m)) + 0.1).astype(np.float32)).to(dev)
+        W_k, Y_k = iss_steps(W, Y, phi, B)
+        W_p, Y_p = iss_steps_reference(W, Y, phi, B)
+        W_d, Y_d = iss_steps_reference(W.to(torch.complex128), Y.to(torch.complex128),
+                                       phi.double(), B)
+        torch.cuda.synchronize()
+        errs = [((a.to(torch.complex128) - b).abs().max() / b.abs().max()).item()
+                for a, b in ((W_k, W_d), (Y_k, Y_d), (W_p, W_d), (Y_p, Y_d))]
+        line = (
+            f"[sources] iss_steps T={T} ({real} real) B={B} F={F} M={m} J={J}: vs complex128 "
+            f"max|dW| {errs[0]:.2e}, max|dY| {errs[1]:.2e} (plain complex64 {errs[2]:.2e}, "
+            f"{errs[3]:.2e}; tol {TAPS_TOL:g})"
+        )
+        if not max(errs[:2]) <= TAPS_TOL:
+            raise AssertionError(line)
+        if timed:
+            ms = cuda_ms(lambda: iss_steps(W, Y, phi, B), queued=True)
+            plain_ms = cuda_ms(lambda: iss_steps_reference(W, Y, phi, B))
+            bound_ms, bound_by = iss_steps_bound(T, BF, B, m, J)
+            line += (
+                f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bound_ms * 1e3:.2f} us ({bound_by}) = {100 * bound_ms / ms:.1f} % of "
+                "the kernel, no single library call (20 runs)"
+            )
+            result.update({"max_rel_err": max(errs[:2]), "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
         log(line)
     return result
 
@@ -1478,13 +1556,15 @@ def phase_joint(dev, seed, main):
     mark("the room's mixture")
     totals = [0, 0]
 
-    def counted(fn, ip_epochs=0):
+    def counted(fn, ip_epochs=0, steps=None):
         """fn() with both counters zeroed just before and read just after:
         a joint run launches no ``wcov_packed``, and ``update_rows`` once for
         each of its ``ip_epochs`` complex64 OverIVA-IP epochs of the f32 tier
-        (WPE -> OverIVA, the IP registry names)."""
+        (WPE -> OverIVA, the IP registry names); ``steps``, where given, is
+        the run's launches of (``iss_steps``, ``tap_steps``)."""
         wcov_packed.launches = 0
         update_rows.launches = 0
+        before = steps_launches()
         out = fn()
         torch.cuda.synchronize()
         got = (wcov_packed.launches, update_rows.launches)
@@ -1493,6 +1573,9 @@ def phase_joint(dev, seed, main):
         if got != (0, ip_epochs):
             raise AssertionError(f"a joint run launched (wcov_packed, update_rows) {got}, "
                                  f"want (0, {ip_epochs})")
+        if steps is not None and steps_since(before) != steps:
+            raise AssertionError(f"a joint run launched (iss_steps, tap_steps) "
+                                 f"{steps_since(before)}, want {steps}")
         for Y in out if isinstance(out, tuple) else (out,) if out is not None else ():
             if not bool(torch.isfinite(torch.as_tensor(Y)).all()):
                 raise AssertionError("non-finite joint output")
@@ -1509,7 +1592,8 @@ def phase_joint(dev, seed, main):
     for name, kw in JOINT_C128:
         filt = {} if name == "wpe" else {"return_filters": True}
         t0 = time.perf_counter()
-        got = counted(lambda: getattr(api, name)(X1_dev, dtype=torch.complex128, **kw, **filt))
+        got = counted(lambda: getattr(api, name)(X1_dev, dtype=torch.complex128, **kw, **filt),
+                      steps=(0, 0))
         t_port = time.perf_counter() - t0
         t0 = time.perf_counter()
         want = getattr(oracle, name)(X1, **kw, **filt)
@@ -1539,7 +1623,7 @@ def phase_joint(dev, seed, main):
     # out, within 1e-6 of the same oracle runs
     for name in ("tiss-df", "tip-df"):
         kw = dict(JOINT_C128[1 if name == "tiss-df" else 2][1])
-        Y = counted(lambda: ALGORITHMS[name](X1_dev.to(torch.complex64), **kw))
+        Y = counted(lambda: ALGORITHMS[name](X1_dev.to(torch.complex64), **kw), steps=(0, 0))
         Yo = oracle_out[name[:-3]]
         d = np.abs(Y.cpu().numpy() - Yo).max() / np.abs(Yo).max()
         line = (f"[joint] {name} {kw}: complex64 out {Y.dtype == torch.complex64}, "
@@ -1558,21 +1642,24 @@ def phase_joint(dev, seed, main):
     Xq5_dev = torch.from_numpy(Xq5.astype(np.complex64)).to(dev)
     Xq3_dev = torch.from_numpy(Xq3.astype(np.complex64)).to(dev)
     q_images = images[:, :nq]
-    rows = [  # (name, run, its IP epochs)
-        ("tiss", lambda a, X5, X3: a.tiss(X5, n_src=N, taps=3, delay=2, n_iter=15), 0),
+    Tq = Xq5.shape[0]
+    rows = [  # (name, run, its IP epochs, its launches of (iss_steps, tap_steps))
+        ("tiss", lambda a, X5, X3: a.tiss(X5, n_src=N, taps=3, delay=2, n_iter=15), 0,
+         steps_want(Tq, QUALITY_M, 3, 15)),
         ("tip", lambda a, X5, X3: a.tip(X5, n_src=N, taps=3, delay=2, n_iter=5, warm_iter=5),
-         0),
-        ("ilrma_t", lambda a, X5, X3: a.ilrma_t(X3, taps=3, delay=2, n_iter=15, seed=5), 0),
+         0, steps_want(Tq, QUALITY_M, 3, 5)),
+        ("ilrma_t", lambda a, X5, X3: a.ilrma_t(X3, taps=3, delay=2, n_iter=15, seed=5), 0,
+         (0, 0)),
         ("wpe+overiva", lambda a, X5, X3: a.overiva(a.wpe(X5, taps=3, delay=2, n_iter=2),
-                                                   n_src=N, n_iter=15), 15),
+                                                   n_src=N, n_iter=15), 15, (0, 0)),
     ]
 
     def quality(Y):
         y = oracle.synthesis(np.asarray(Y), QUALITY_NFFT, hop)[QUALITY_NFFT - hop:][:nq]
         return score(y, q_images, nq)
 
-    for name, run, ip_epochs in rows:
-        Y = counted(lambda: run(api, Xq5_dev, Xq3_dev), ip_epochs).cpu().numpy()
+    for name, run, ip_epochs, steps in rows:
+        Y = counted(lambda: run(api, Xq5_dev, Xq3_dev), ip_epochs, steps).cpu().numpy()
         sdr, sir = quality(Y)
         sdr_o, sir_o = quality(run(oracle, Xq5, Xq3))
         d_sdr, d_sir = np.abs(sdr - sdr_o).max(), np.abs(sir - sir_o).max()
@@ -1597,18 +1684,22 @@ def phase_joint(dev, seed, main):
     X = api.stft_analysis(x, NFFT, device=dev)
     if X.shape != (JOINT_T, NFFT // 2 + 1, M):
         raise AssertionError(f"joint STFT shape {tuple(X.shape)}")
-    runs = [  # (name, epochs, run, whether its epochs are OverIVA-IP ones)
-        ("wpe (taps 5, delay 2)", 2, lambda k: api.wpe(X, taps=5, delay=2, n_iter=k), False),
+    runs = [  # (name, epochs, run, whether its epochs are OverIVA-IP ones, its T-ISS epochs)
+        ("wpe (taps 5, delay 2)", 2, lambda k: api.wpe(X, taps=5, delay=2, n_iter=k), False,
+         0),
         ("wpe 2 it -> overiva", 30,
-         lambda k: api.overiva(api.wpe(X, taps=5, delay=2, n_iter=2), n_src=N, n_iter=k), True),
-        ("tiss", 30, lambda k: api.tiss(X, n_src=N, n_iter=k), False),
-        ("tip f32, after 10 T-ISS epochs", 10, lambda k: api.tip(X, n_src=N, n_iter=k), False),
+         lambda k: api.overiva(api.wpe(X, taps=5, delay=2, n_iter=2), n_src=N, n_iter=k), True,
+         0),
+        ("tiss", 30, lambda k: api.tiss(X, n_src=N, n_iter=k), False, 30),
+        ("tip f32, after 10 T-ISS epochs", 10, lambda k: api.tip(X, n_src=N, n_iter=k), False,
+         10),
         ("tip bf16, after 10 T-ISS epochs", 10,
-         lambda k: api.tip(X, n_src=N, n_iter=k, wcov="bf16"), False),
-        ("ilrma_t", 30, lambda k: api.ilrma_t(X, n_iter=k), False),
+         lambda k: api.tip(X, n_src=N, n_iter=k, wcov="bf16"), False, 10),
+        ("ilrma_t", 30, lambda k: api.ilrma_t(X, n_iter=k), False, 0),
     ]
-    for name, k, fn, ip in runs:
-        Y = counted(lambda: fn(k), k if ip else 0)
+    for name, k, fn, ip, tiss_epochs in runs:
+        # T = 512 frames: past the kernels' 256, so no T-ISS epoch launches them
+        Y = counted(lambda: fn(k), k if ip else 0, steps_want(X.shape[0], M, 5, tiss_epochs))
         if Y.shape[:2] != X.shape[:2]:
             raise AssertionError(f"{name}: output shape {tuple(Y.shape)}")
         t = best_wall_s(lambda: fn(k))
@@ -1663,19 +1754,68 @@ def phase_joint(dev, seed, main):
     return tuple(totals)
 
 
+def steps_launches():
+    """The launches so far of (``iss_steps``, ``tap_steps``), the ISS and
+    T-ISS kernels."""
+    from overiva_tpu_torch.ops.iss_steps import iss_steps
+    from overiva_tpu_torch.ops.tap_steps import tap_steps
+
+    return iss_steps.launches, tap_steps.launches
+
+
+def steps_since(before):
+    """The launches of (``iss_steps``, ``tap_steps``) since ``before``."""
+    return tuple(b - a for a, b in zip(before, steps_launches()))
+
+
+def steps_want(T, m, taps, epochs, dtype=torch.complex64):
+    """The launches of (``iss_steps``, ``tap_steps``) that ``epochs`` ISS
+    (taps 0) or T-ISS epochs make on T frames of m channels: one of each
+    kernel an epoch that runs it, none where its route does not hold."""
+    from overiva_tpu_torch.ops import iss_steps, tap_steps
+
+    MK = m * taps
+    return (epochs * iss_steps.kernel_route("cuda", dtype, m, m + MK, T),
+            epochs * (MK > 0 and tap_steps.kernel_route("cuda", dtype, m, MK, T)))
+
+
+def separate_steps_want(algo, n_samples, n_iter, nfft=4096):
+    """:func:`steps_want` for ``api.separate(algo=...)`` with its defaults
+    (complex64, nfft 4096, hop nfft / 2, taps 5) on a clip of ``n_samples``
+    samples of M mics: ``n_iter`` ISS or T-ISS epochs, T-IP's 10 warm T-ISS
+    epochs, no such epoch under the other algorithms."""
+    from overiva_tpu_torch.ops import stft
+
+    hop = nfft // 2
+    T = stft.n_frames_of(stft.stft_pad(torch.zeros(n_samples), nfft, hop).shape[0], nfft, hop)
+    epochs = {"iss": n_iter, "tiss": n_iter, "tip": 10}.get(algo, 0)
+    return steps_want(T, M, 0 if algo == "iss" else 5, epochs)
+
+
 def phase_requests(dev, seed, algo="ip", n_iter=30, tag="requests", **opts):
     """``separate(algo=...)`` on three clips of 64, 128 and 256 frames,
-    after one warm-up call; ``opts`` go to ``separate`` as they are.
-    Returns {frames: ms}."""
+    after one warm-up call; ``opts`` go to ``separate`` as they are. Each
+    call's launches of (``iss_steps``, ``tap_steps``) are those of
+    :func:`separate_steps_want`. Returns {frames: ms}."""
     from overiva_tpu_torch import api
 
     rng = np.random.default_rng(seed + 1)
     clips = [make_mixture(rng, N, M, samples_for_frames(f))[0] for f in (64, 128, 256)]
-    api.separate(clips[0], n_src=N, n_iter=n_iter, algo=algo, device=dev, **opts)  # warm-up
+
+    def run(clip):
+        before = steps_launches()
+        y = api.separate(clip, n_src=N, n_iter=n_iter, algo=algo, device=dev, **opts)
+        got, want = steps_since(before), separate_steps_want(algo, clip.shape[0], n_iter)
+        if got != want:
+            raise AssertionError(f"[{tag}] separate(algo={algo!r}) on {clip.shape[0]} samples "
+                                 f"launched (iss_steps, tap_steps) {got}, want {want}")
+        return y, got
+
+    run(clips[0])  # warm-up
     times = {}
     for frames, clip in zip((64, 128, 256), clips):
         t0 = time.perf_counter()
-        y = api.separate(clip, n_src=N, n_iter=n_iter, algo=algo, device=dev, **opts)
+        y, launched = run(clip)
         ms = (time.perf_counter() - t0) * 1e3
         if y.shape != (clip.shape[0], N) or not np.isfinite(y).all():
             raise AssertionError(f"bad separate output {y.shape}")
@@ -1684,7 +1824,7 @@ def phase_requests(dev, seed, algo="ip", n_iter=30, tag="requests", **opts):
             + "".join(f", {k}={v!r}" for k, v in opts.items())
             + f") {clip.shape[0]} samples x "
             f"{M} mics ({clip.shape[0] // HOP + 1} frames): {ms:.1f} ms, "
-            "numpy in and out"
+            f"numpy in and out; launches of (iss_steps, tap_steps) {launched}"
         )
         times[frames] = ms
     return times
@@ -2712,12 +2852,19 @@ def main():
     phase_t0 = [time.perf_counter()]
 
     def timed(tag, fn, *args, **kw):
-        """fn(*args, **kw), then its wall on a [time] line."""
+        """fn(*args, **kw), then its wall and its launches of (``iss_steps``,
+        ``tap_steps``) on a [time] line; the launches go to
+        ``timed.steps[tag]``."""
+        before = steps_launches()
         out = fn(*args, **kw)
         now = time.perf_counter()
-        log(f"[time] {tag} {now - phase_t0[0]:.1f} s")
+        timed.steps[tag] = steps_since(before)
+        log(f"[time] {tag} {now - phase_t0[0]:.1f} s; launches of (iss_steps, tap_steps) "
+            f"{timed.steps[tag]}")
         phase_t0[0] = now
         return out
+
+    timed.steps = {}
 
     dev = timed("device", phase_device)
     timed("build", phase_build)
@@ -2725,6 +2872,7 @@ def main():
     fused = timed("fused kernel", phase_fused_kernel, dev, seed)
     entry_launches = timed("entry", phase_entry, dev)
     taps = timed("tap kernel", phase_tap_kernel, dev, seed)
+    sources = timed("source kernel", phase_source_kernel, dev, seed)
 
     rng = np.random.default_rng(seed)
     mix, images = make_mixture(rng, N, M, samples_for_frames(128))
@@ -2743,8 +2891,8 @@ def main():
 
         scenes = {(f, s): pool.submit(scaled_mixture, s, n_samples=n_samples)
                   for f, n_samples in SCALED_SCENES.items() for s in SCALED_SEEDS}
-        phases(dev, seed, timed, kernel, fused, taps, mix, images, X64, oracle_jobs, serving,
-               serve_oracles, scenes, pool, entry_launches)
+        phases(dev, seed, timed, kernel, fused, taps, sources, mix, images, X64, oracle_jobs,
+               serving, serve_oracles, scenes, pool, entry_launches)
     finally:
         pool.shutdown(cancel_futures=True)
     log(f"[done] chip_smoke.py wall {time.perf_counter() - t_start:.1f} s")
@@ -2755,10 +2903,11 @@ def main():
     }}))
 
 
-def phases(dev, seed, timed, kernel, fused, taps, mix, images, X64, oracle_jobs, serving,
-           serve_oracles, scenes, pool, entry_launches):
-    """Phases 4-14 and the kernels line (``kernel``, ``fused``, ``taps``:
-    phases 3, 3b and 3d's entries; ``entry_launches``: phase 3c's), on phase 5's mixture
+def phases(dev, seed, timed, kernel, fused, taps, sources, mix, images, X64, oracle_jobs,
+           serving, serve_oracles, scenes, pool, entry_launches):
+    """Phases 4-14 and the kernels line (``kernel``, ``fused``, ``taps``,
+    ``sources``: phases 3, 3b, 3d and 3e's entries; ``entry_launches``:
+    phase 3c's), on phase 5's mixture
     ``mix`` (its STFT ``X64``);
     ``oracle_jobs``: phase 8's oracle runs; ``serving`` and
     ``serve_oracles``: phase 11's clips and their oracle scores;
@@ -2781,6 +2930,9 @@ def phases(dev, seed, timed, kernel, fused, taps, mix, images, X64, oracle_jobs,
                          scenes, pool)
     sweep_launches = timed("sweep", phase_sweep, dev, main_path)
     bench_launches = timed("bench", phase_bench, dev)
+    ip_only = {tag: timed.steps[tag] for tag in ("trajectory", "main path", "fused run")}
+    if any(n != (0, 0) for n in ip_only.values()):
+        raise AssertionError(f"an IP-only phase launched (iss_steps, tap_steps): {ip_only}")
 
     loaded = sorted(
         m for m in sys.modules
@@ -2824,6 +2976,14 @@ def phases(dev, seed, timed, kernel, fused, taps, mix, images, X64, oracle_jobs,
         "source": "overiva_tpu_torch/csrc/tap_steps.cu",
         "replaces": None,
         **taps,
+        "phase_launches": {tag: n[1] for tag, n in timed.steps.items() if n[1]},
+    }, {
+        "name": "iss_steps",
+        "route": "cuda",
+        "source": "overiva_tpu_torch/csrc/iss_steps.cu",
+        "replaces": None,
+        **sources,
+        "phase_launches": {tag: n[0] for tag, n in timed.steps.items() if n[0]},
     }]}))
 
 

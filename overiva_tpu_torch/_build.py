@@ -150,4 +150,8 @@ def library() -> ctypes.CDLL:
     lib.tap_steps_launch.restype = ci
     lib.tap_steps_error_string.argtypes = [ci]
     lib.tap_steps_error_string.restype = ctypes.c_char_p
+    lib.iss_steps_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+    lib.iss_steps_launch.restype = ci
+    lib.iss_steps_error_string.argtypes = [ci]
+    lib.iss_steps_error_string.restype = ctypes.c_char_p
     return lib

@@ -13,18 +13,22 @@ background outputs a stationary unit Gaussian (phi = 1).
 ISS keeps Y up to date step by step, so the state is (W, Y) and a run is
 resumed from both, never re-demixed. Folded mixtures (``n_mix``, see
 ``models/overiva.py::fold_mixtures``) each get their own activations.
+Where ``ops/iss_steps.py::kernel_route`` holds (CUDA, complex64, M and T
+within the kernel's limits) the M steps of an epoch are one launch of the
+``iss_steps`` kernel; every other input runs the plain steps. Each epoch of
+:func:`auxiva_iss_iterations` is a ``family.epoch`` span (``index``,
+``bins``, ``kernel``: 1 where its steps ran the kernel).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..ops.iss_steps import iss_steps, steps_route
 from ..utils.profiling import span
 from .overiva import demix, mixture_activations
 
 __all__ = ["auxiva_iss_iterations", "iss_phi", "iss_steps"]
-
-_EPS = 1e-15
 
 
 def iss_phi(Y, model: str, n_src=None, n_mix: int = 1, group=None, n_freq=None,
@@ -42,33 +46,14 @@ def iss_phi(Y, model: str, n_src=None, n_mix: int = 1, group=None, n_freq=None,
     return phi
 
 
-def iss_steps(W, Y, phi, n_mix: int = 1):
-    """The M source-steering steps, in order, with the weights phi (T, B, M):
-    W (B*F, M, J) for any row width J (T-ISS steers its augmented rows),
-    Y (T, B*F, M). Returns the new (W, Y)."""
-    T, BF, M = Y.shape
-    F = BF // n_mix
-    col = torch.arange(M, device=Y.device)[None, :]
-    for n in range(M):  # order-dependent
-        Yb = Y.reshape(T, n_mix, F, M)
-        ynb = Yb[:, :, :, n]  # (T, B, F)
-        num = torch.einsum("tbfm,tbf->bfm", phi[:, :, None, :] * Yb, ynb.conj()).reshape(BF, M)
-        den = torch.einsum("tbm,tbf->bfm", phi, (ynb * ynb.conj()).real).reshape(BF, M)
-        v = num / torch.clamp_min(den, _EPS)
-        dnn = den[:, n] / T
-        vnn = 1.0 - torch.rsqrt(torch.clamp_min(dnn, _EPS))
-        v = torch.where(col == n, vnn[:, None].to(v.dtype), v)
-        Y = Y - v[None, :, :] * Y[:, :, n, None]
-        W = W - v[:, :, None] * W[:, n, None, :]
-    return W, Y
-
-
 def _iss_epoch(W, Y, model: str, n_src=None, n_mix: int = 1, group=None, n_freq=None,
-               bin_mask=None):
+               bin_mask=None, route=None):
     """One ISS epoch on the full state: W (B*F, M, M), Y (T, B*F, M).
     Returns the new (W, Y). ``group``, ``n_freq``, ``bin_mask``: bin
-    sharding (:func:`iss_phi`)."""
-    return iss_steps(W, Y, iss_phi(Y, model, n_src, n_mix, group, n_freq, bin_mask), n_mix)
+    sharding (:func:`iss_phi`); ``route``: whether the steps run the kernel
+    (default: ``ops/iss_steps.py::steps_route``)."""
+    phi = iss_phi(Y, model, n_src, n_mix, group, n_freq, bin_mask)
+    return iss_steps(W, Y, phi, n_mix, route)
 
 
 def auxiva_iss_iterations(X, W, n_iter: int, model: str, n_src=None, Y=None,
@@ -80,7 +65,8 @@ def auxiva_iss_iterations(X, W, n_iter: int, model: str, n_src=None, Y=None,
     take ``Y[:, :, :n_src]``."""
     if Y is None:
         Y = demix(X, W)
+    route = steps_route(W, Y)
     for i in range(n_iter):
-        with span("family.epoch", index=i, bins=X.shape[1]):
-            W, Y = _iss_epoch(W, Y, model, n_src, n_mix)
+        with span("family.epoch", index=i, bins=X.shape[1], kernel=int(route)):
+            W, Y = _iss_epoch(W, Y, model, n_src, n_mix, route=route)
     return W, Y

@@ -5,8 +5,9 @@ Counterpart of ``overiva_tpu/models/tiss.py`` (oracle twin
 acts on the augmented input ``Xt = [X | delayed_taps(X)]`` (T, F, MJ).
 Per epoch:
 
-- the M source-steering steps of ``models/auxiva_iss.py`` (the same code,
-  :func:`iss_steps`), applied to the augmented rows of P;
+- the M source-steering steps of the ISS epoch (the same code,
+  ``ops/iss_steps.py::iss_steps``: one launch of the ``iss_steps`` kernel
+  where its ``kernel_route`` holds), applied to the augmented rows of P;
 - the MK = M*taps tap-steering steps against the delayed observations
   z_j = Xt[:, :, M + j]: weighted least squares, no self term
   (``ops/tap_steps.py``). The loop carries Y only, and the tap block of P
@@ -20,19 +21,22 @@ Per epoch:
 taps = 0 an epoch is the ISS epoch exactly. Folded mixtures (``n_mix``,
 ``models/overiva.py::fold_mixtures``) each get their own activations.
 Each epoch is a ``family.epoch`` span (``index``, ``bins``, ``taps`` =
-MK), its tap steps a ``tiss.taps`` span (``steps`` = MK, ``bins``,
-``frames``, ``outputs`` = M, ``kernel``: 1 where the steps ran the
-kernel).
+MK), its source steps a ``tiss.sources`` span (``steps`` = M, ``bins``,
+``frames``, ``outputs`` = M, ``width`` = M + MK, ``kernel``: 1 where the
+steps ran the ``iss_steps`` kernel) and its tap steps a ``tiss.taps`` span
+(``steps`` = MK, ``bins``, ``frames``, ``outputs`` = M, ``kernel``: 1 where
+the steps ran the ``tap_steps`` kernel).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..ops.iss_steps import iss_steps, steps_route
 from ..ops.tap_steps import kernel_route, tap_steps, tap_steps_reference
 from ..ops.wpe import delayed_taps
 from ..utils.profiling import span
-from .auxiva_iss import iss_phi, iss_steps
+from .auxiva_iss import iss_phi
 from .overiva import demix
 
 __all__ = ["augment_taps", "augmented_eye", "tap_steps", "tiss_iterations"]
@@ -60,9 +64,12 @@ def _tiss_epoch(Xt, P, Y, model: str, n_chan: int, n_src=None, n_mix: int = 1, g
     bin-local, so the power psum of :func:`iss_phi` stays the one
     collective. Returns the new (P, Y)."""
     phi = iss_phi(Y, model, n_src, n_mix, group, n_freq, bin_mask)
-    P, Y = iss_steps(P, Y, phi, n_mix)
+    T, BF, M = Y.shape
+    route = steps_route(P, Y)
+    with span("tiss.sources", steps=M, bins=BF, frames=T, outputs=M, width=P.shape[2],
+              kernel=int(route)):
+        P, Y = iss_steps(P, Y, phi, n_mix, route)
     if Xt.shape[2] > n_chan:
-        T, BF, M = Y.shape
         MK = Xt.shape[2] - n_chan
         route = kernel_route(Y.device.type, Y.dtype, M, MK, T)
         steps = tap_steps if route else tap_steps_reference

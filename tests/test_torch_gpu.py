@@ -1,5 +1,5 @@
 """PyTorch port on a CUDA card: the hand-written kernels (``wcov_packed``,
-``update_rows``, ``tap_steps``) against their plain versions, and the main path, the
+``update_rows``, ``tap_steps``, ``iss_steps``) against their plain versions, and the main path, the
 fused epoch, the ISS, IP2, FIVE and OGIVE families, the per-(t,f)-weighted
 and joint families, the streaming classes and the clip-serving
 ``Separator`` on the card against the same on the CPU (the streaming
@@ -22,6 +22,7 @@ import torch
 
 from overiva_tpu_torch import api
 from overiva_tpu_torch.models import overiva as core
+from overiva_tpu_torch.ops import iss_steps as tis
 from overiva_tpu_torch.ops import tap_steps as tts
 from overiva_tpu_torch.ops import update_rows as tur
 from overiva_tpu_torch.ops import wcov_packed as twp
@@ -448,8 +449,8 @@ def test_tiss_epochs_launch_tap_steps_once_an_epoch(cuda):
     launches the kernel once an epoch, every ``tiss.taps`` span says
     ``kernel=1``, an epoch makes fewer than 180 launches, and 4 epochs
     stay within 1e-4 of max|Y| of the same epochs run with the plain
-    steps on the card (complex64 both; the sums' order differs, and the
-    source steps feed it on)."""
+    source and tap steps on the card (complex64 both; the sums' order
+    differs, and each epoch feeds the next)."""
     from torch.profiler import ProfilerActivity, profile
 
     from overiva_tpu_torch.models import tiss as ttiss
@@ -475,9 +476,147 @@ def test_tiss_epochs_launch_tap_steps_once_an_epoch(cuda):
     P_p, Y_p = P0, ttiss.demix(Xt, P0)
     for _ in range(n_ep):
         phi = ttiss.iss_phi(Y_p, "laplace", 2, n_mix)
-        P_p, Y_p = ttiss.iss_steps(P_p, Y_p, phi, n_mix)
+        P_p, Y_p = tis.iss_steps_reference(P_p, Y_p, phi, n_mix)
         P_p, Y_p = tts.tap_steps_reference(P_p, Y_p, Xt[:, :, M:], phi, n_mix)
     assert (Y - Y_p).abs().max().item() <= 1e-4 * Y_p.abs().max().item()
+
+
+# ------------------------------------------------------ the source-steps kernel
+
+def _iss_cases():
+    """M in {2, 3, 8}, J in {M, M + 8 x 5}, n_mix in {1, 8} and T in {56,
+    189, 192, 256}, the last three with zero tail frames (189 of 192 real:
+    the ``tiss_batch`` cell's bucket), rows of the widest J routed, and
+    T = 1 at M = 1 (at T = 1 and
+    M >= 2 the data is rank 1, the first step fits every other output to
+    rounding noise, and the plain steps themselves land 0.7-2.2 of max|W|
+    away from complex128), and J = M + 128."""
+    cases = []
+    for M in (2, 3, 8):
+        for J in (M, M + 40):
+            for n_mix in (1, 8):
+                for T, real in ((56, 56), (189, 186), (192, 189), (256, 250)):
+                    cases.append((T, real, n_mix, 33 if n_mix == 8 else 65, M, J))
+    cases += [(1, 1, n_mix, 9, 1, J) for n_mix in (1, 8) for J in (1, 41)]
+    # the widest rows a routed T-ISS epoch gives (tap_steps takes M x taps <= 128)
+    cases += [(64, 60, 1, 9, M, M + 128) for M in (3, 8)]
+    return cases
+
+
+def _iss_state(seed, T, real, n_mix, F, M, J, device):
+    """W (B*F, M, J), Y (T, B*F, M) with frames from ``real`` on zero, and
+    phi (T, B, M), complex64 / float32 on ``device``."""
+    rng = np.random.default_rng(seed)
+    BF = n_mix * F
+
+    def cplx(*shape):
+        z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        return torch.from_numpy(z.astype(np.complex64)).to(device)
+
+    W, Y = cplx(BF, M, J), cplx(T, BF, M)
+    Y[real:] = 0
+    phi = torch.from_numpy((rng.random((T, n_mix, M)) + 0.1).astype(np.float32)).to(device)
+    return W, Y, phi
+
+
+@pytest.mark.parametrize("T,real,n_mix,F,M,J", [(192, 189, 8, 513, 8, 48)] + _iss_cases())
+def test_iss_steps_kernel_matches_plain(cuda, T, real, n_mix, F, M, J):
+    """The kernel and the plain version on the card, both complex64,
+    against the plain version at complex128, and against each other: each
+    within 1e-5 of max|W| and of max|Y| (the larger of the input's and the
+    result's). The kernel sums over T in another order than cuBLAS does and
+    applies the M steps to W as one transform at the end; M sequential
+    steps carry each v's ~1e-7 relative rounding (1e-7 to 2e-7 in a host
+    emulation of the kernel's lanes). One launch a call; the inputs are
+    left as they were. The first case is the ``tiss_batch`` cell."""
+    W, Y, phi = _iss_state(T + n_mix + F + M + J, T, real, n_mix, F, M, J, cuda)
+    inputs = [t.clone() for t in (W, Y, phi)]
+    before = tis.iss_steps.launches
+    W_k, Y_k = tis.iss_steps(W, Y, phi, n_mix)
+    torch.cuda.synchronize()
+    assert tis.iss_steps.launches == before + 1
+    W_p, Y_p = tis.iss_steps_reference(W, Y, phi, n_mix)
+    assert tis.iss_steps.launches == before + 1  # the plain version never counts
+    W_d, Y_d = tis.iss_steps_reference(W.to(torch.complex128), Y.to(torch.complex128),
+                                       phi.double(), n_mix)
+    assert all(torch.equal(a, b) for a, b in zip((W, Y, phi), inputs))
+    assert torch.isfinite(W_k).all() and torch.isfinite(Y_k).all()
+    assert not Y_k[real:].any()  # zero frames stay zero
+    w_scale = W_d.abs().max().item()
+    y_scale = max(Y_d.abs().max().item(), Y.abs().max().item())
+    gaps = [_gap(W_k, W_d, w_scale), _gap(Y_k, Y_d, y_scale),
+            _gap(W_p, W_d, w_scale), _gap(Y_p, Y_d, y_scale),
+            _gap(W_k, W_p, w_scale), _gap(Y_k, Y_p, y_scale)]
+    assert max(gaps) <= 1e-5, gaps
+
+
+def test_iss_steps_refuses_bad_inputs(cuda):
+    """The launcher refuses what the kernel does not take; the wrapper runs
+    the plain steps there, and counts no launch."""
+    W, Y, phi = _iss_state(6, 16, 16, 1, 8, 2, 6, cuda)
+    with pytest.raises(ValueError, match="complex64 only"):
+        tis._launch(W, Y.to(torch.complex128), phi, 1)
+    with pytest.raises(ValueError, match="one device"):
+        tis._launch(W, Y, phi.cpu(), 1)
+    for T, M, J, what in ((16, tis.MAX_M + 1, 9, "1 <= M <="),
+                          (16, 3, 2, "J >= M"),
+                          (tis.MAX_T + 1, 2, 4, "1 <= T <=")):
+        Wb, Yb, phib = _iss_state(7, T, T, 1, 8, M, J, cuda)
+        assert not tis.kernel_route("cuda", torch.complex64, M, J, T)
+        with pytest.raises(ValueError, match=what):
+            tis._launch(Wb, Yb, phib, 1)
+        if J >= M:
+            before = tis.iss_steps.launches
+            got = tis.iss_steps(Wb, Yb, phib)
+            want = tis.iss_steps_reference(Wb, Yb, phib)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+            assert tis.iss_steps.launches == before
+
+
+@pytest.mark.parametrize("algo", ["tiss", "iss"])
+def test_epochs_launch_iss_steps_once_an_epoch(cuda, algo):
+    """``tiss_iterations`` at the ``tiss_batch`` cell's shapes (8 folded
+    rooms of 513 bins, 192 frames, M=8, 5 taps, N=2) and an OverIVA-ISS
+    ``run_family`` (M=8, N=3, 8 rooms of 129 bins) on the card launch the
+    kernel once an epoch, and ``iss_steps.launches`` equals the spans'
+    ``kernel`` counts (``tiss.sources``; ISS: ``family.epoch``). A T-ISS
+    epoch makes at most 25 launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from overiva_tpu_torch.models import tiss as ttiss
+    from overiva_tpu_torch.models.family import run_family
+    from overiva_tpu_torch.utils.profiling import tracing
+
+    rng = np.random.default_rng(9)
+    n_ep, M, n_mix = 4, 8, 8
+    T, F = (192, 8 * 513) if algo == "tiss" else (56, 8 * 129)
+    X = rng.standard_normal((T, F, M)) + 1j * rng.standard_normal((T, F, M))
+    X = torch.from_numpy(X.astype(np.complex64)).to(cuda)
+    if algo == "tiss":
+        Xt = ttiss.augment_taps(X, 5, 2)
+        P0 = ttiss.augmented_eye(Xt, M)
+        Y0 = ttiss.demix(Xt, P0)
+
+        def run(n):  # the epochs alone: the first demix is done
+            return ttiss.tiss_iterations(Xt, P0, n, "laplace", M, 2, Y=Y0, n_mix=n_mix)
+        span_name = "tiss.sources"
+    else:
+        def run(n):
+            return run_family(X, 3, n, "laplace", "iss", n_mix=n_mix)
+        span_name = "family.epoch"
+    run(1)  # build, warm
+    torch.cuda.synchronize()
+    before = tis.iss_steps.launches
+    with tracing() as tr, profile(activities=[ProfilerActivity.CPU]) as prof:
+        run(n_ep)
+        torch.cuda.synchronize()
+    kernel = [s["counts"]["kernel"] for s in tr.spans if s["name"] == span_name]
+    assert kernel == [1] * n_ep
+    assert tis.iss_steps.launches - before == sum(kernel) == n_ep
+    if algo == "tiss":
+        launches = [e for e in prof.events()
+                    if e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))]
+        assert len(launches) <= 25 * n_ep, len(launches)
 
 
 def test_fused_epoch_on_card_matches_cpu(cuda):
@@ -972,8 +1111,11 @@ def test_separator_never_syncs_the_host(cuda):
 def test_separator_tiss_m8n2_taps5_group_on_card(cuda):
     """The ``tiss_batch`` cell's configuration (``Separator("tiss", n_src=2,
     nfft=1024, hop=512, n_iter=30, taps=5, delay=2)``, M=8, complex64): a
-    group of 8 of its rooms folded into one run on the card scores within
-    0.1 dB SDR and SIR of the same group at complex128 on the CPU, and
+    group of 8 of its rooms folded into one run on the card (both kernels:
+    ``iss_steps`` and ``tap_steps`` once an epoch) scores within 0.1 dB SDR
+    and SIR of the same group at complex128 on the CPU, each source within
+    the cell's 1e-4 limit of it (the norm of the gap over the reference's),
+    and
     the clip path of a group (``Separator._separate_host``) syncs no host
     and gives ``separate_batch``'s samples bit for bit."""
     import json
@@ -1002,6 +1144,8 @@ def test_separator_tiss_m8n2_taps5_group_on_card(cuda):
         sdr_w, sir_w, _, _ = bss_eval_sources(refs, want.T)
         assert np.abs(sdr - sdr_w).max() < 0.1 and np.abs(sir - sir_w).max() < 0.1, (
             i, sdr, sdr_w, sir, sir_w)
+        rel = np.linalg.norm(y - want, axis=0) / np.linalg.norm(want, axis=0)
+        assert rel.max() <= 1e-4, (i, rel)  # the cell's limit on rel_err
     idxs = list(range(8))
     prepped = [sep._prep_clip(x.shape[0]) for x in mixes]
     xb = sep._group_bucket(mixes, idxs, prepped, cfg["n_chan"], False)
@@ -1038,7 +1182,7 @@ def test_eigh_chunked_on_card(cuda):
 
 def test_tiny_tiss_cell_on_card(cuda, tmp_path):
     """The tiny T-ISS cell through the harness on the card, traced: correct,
-    and all six of its per-layer metrics, the device trace's too."""
+    and all nine of its per-layer metrics, the device trace's too."""
     import time
 
     from benchmark import run
@@ -1050,9 +1194,11 @@ def test_tiny_tiss_cell_on_card(cuda, tmp_path):
     assert res["correct"] is True, res["compared"]
     assert set(res["metrics"]) == {m["name"] for m in cell.per_layer} == {
         "epoch_ms.tiss", "launches_per_epoch.tiss", "idle_frac.tiss", "tap_ms.tiss",
-        "tap_share.tiss", "tap_hbm_frac.tiss"}
-    assert 0 < res["metrics"]["tap_share.tiss"]["value"] <= 1
-    assert 0 < res["metrics"]["tap_hbm_frac.tiss"]["value"] <= 1
+        "tap_share.tiss", "tap_hbm_frac.tiss", "source_ms.tiss", "source_share.tiss",
+        "source_hbm_frac.tiss"}
+    for name in ("tap_share.tiss", "tap_hbm_frac.tiss", "source_share.tiss",
+                 "source_hbm_frac.tiss"):
+        assert 0 < res["metrics"][name]["value"] <= 1, name
 
 
 # ------------------------------------------------------ the parallel tier
@@ -1075,6 +1221,29 @@ def test_parallel_gloo_ranks_share_one_card(cuda):
             assert [o[shape, name][1] for o in outs] == [
                 dryrun.expected_collectives(name, X.shape[0] // shape[0])] * 4
             assert dryrun.check_family(Y, X, name, cuda) <= 1.0, (shape, name)
+
+
+def test_parallel_gloo_sharded_tiss_complex64(cuda):
+    """Four gloo ranks on cuda:0, T-ISS on the (2, 2) mesh at complex64,
+    where each rank's epochs run the ``iss_steps`` and ``tap_steps``
+    kernels on its slice of bins: within 1e-4 of max|Y| of the unsharded
+    complex64 run of each mixture on the card (the bins' power psum sums
+    in another order)."""
+    from overiva_tpu_torch.parallel import dryrun
+    from overiva_tpu_torch.parallel.launch import launch
+
+    X = dryrun.tiny_batch(2, 2).astype(np.complex64)
+    T, F, M = X.shape[1:]
+    kw = dryrun.family_kwargs("tiss", F)
+    J = M * (1 + kw["taps"])
+    assert tis.kernel_route("cuda", torch.complex64, M, J, T)
+    outs = launch(dryrun.rank_families, 4, ([(2, 2)], X, "cuda", ("tiss",)),
+                  device_type="cuda", backend="gloo", timeout=300)
+    Y = np.asarray(outs[0][(2, 2), "tiss"][0])
+    assert all(np.array_equal(np.asarray(o[(2, 2), "tiss"][0]), Y) for o in outs[1:])
+    for b in range(X.shape[0]):
+        ref = np.asarray(api.tiss(X[b], **kw, dtype=np.complex64, device=cuda))
+        assert np.abs(Y[b] - ref).max() <= 1e-4 * np.abs(ref).max(), b
 
 
 def test_parallel_nccl_one_rank(cuda):
@@ -1196,13 +1365,15 @@ def test_sweep_batched_matches_serial_on_card(cuda, tmp_path):
 def test_bench_twin_on_card(cuda):
     """The bench twin's rows at its small shape on the card: every key,
     every value finite, no row error, ``wcov_packed`` launched by the
-    two bf16pack rows alone, (1 warm-up + 1 timed) x n_iter each, and
+    two bf16pack rows alone, (1 warm-up + 1 timed) x n_iter each,
     ``update_rows`` once for each IP epoch of the complex64 f32 and f32x3
-    rows, as many as their spans say ``kernel=1``."""
+    rows, and the ``family.epoch`` spans' ``kernel=1`` as many as those
+    launches and the ISS rows' ``iss_steps`` launches (the T-ISS rows'
+    count on their ``tiss.sources`` spans)."""
     from overiva_tpu_torch.examples import bench
     from overiva_tpu_torch.utils.profiling import tracing
 
-    twp.wcov_packed.launches = tur.update_rows.launches = 0
+    twp.wcov_packed.launches = tur.update_rows.launches = tis.iss_steps.launches = 0
     with tracing() as tr:
         extra = bench.run(cuda, bench.TINY, repeats=1)["extra"]
     assert set(extra) == set(bench.EXTRA_KEYS) | {"device"}, extra.get("bench_errors")
@@ -1215,4 +1386,8 @@ def test_bench_twin_on_card(cuda):
     # groups a call; one at the full shape)
     n = bench.TINY.n_iter
     assert tur.update_rows.launches == 2 * (5 * n + (n + 200) + (n + 100) + 2 * n + 2 * 2 * n)
-    assert tr.table()["family.epoch"]["counts"]["kernel"] == tur.update_rows.launches
+    table = tr.table()
+    tiss_sources = table["tiss.sources"]["counts"]["kernel"]
+    iss_epochs = tis.iss_steps.launches - tiss_sources
+    assert tiss_sources > 0 and iss_epochs > 0
+    assert table["family.epoch"]["counts"]["kernel"] == tur.update_rows.launches + iss_epochs

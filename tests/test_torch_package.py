@@ -305,8 +305,8 @@ def test_ptxas_summary():
 def test_chip_smoke_bounds():
     """The least times ``chip_smoke.py`` reports beside each kernel, from
     the headline shapes and the benchmark cells' (one clip, and 8 rooms
-    folded; the T-ISS group for ``tap_steps``, equal to the benchmark's
-    own floor): all are bound by bytes. update_rows' covariances
+    folded; the T-ISS group for ``tap_steps`` and ``iss_steps``, equal to
+    the benchmark's own floors): all are bound by bytes. update_rows' covariances
     share x x^H across sources over the Hermitian triangle: 576 flops per
     frame and bin at M=8, N=3."""
     sys.path.insert(0, str(REPO))
@@ -331,6 +331,34 @@ def test_chip_smoke_bounds():
     ms, by = chip_smoke.tap_steps_bound(192, 8 * 513, 8, 8, 40)
     assert by == "bytes" and ms == 1e3 * tap_steps_bound(192, 8 * 513, 8, 8, 40)[0]
     assert 0.1085 < ms < 0.1086
+    # iss_steps at the tiss_batch cell: the benchmark's byte floor, 37.6 us
+    from benchmark.roofline_sources import source_steps_bound
+
+    ms, by = chip_smoke.iss_steps_bound(192, 8 * 513, 8, 8, 48)
+    assert by == "bytes" and ms == 1e3 * source_steps_bound(192, 8 * 513, 8, 8, 48)[0]
+    assert 0.0376 < ms < 0.0377
+
+
+def test_chip_smoke_steps_launches():
+    """The launches of (iss_steps, tap_steps) that ``chip_smoke.py`` asks of
+    its ``separate`` calls and joint runs: one of each kernel an epoch that
+    runs it (ISS: iss_steps alone; T-IP: its 10 warm T-ISS epochs), none
+    past 256 frames, under complex128 or without T-ISS epochs."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    for frames in (64, 128, 256):
+        n = chip_smoke.samples_for_frames(frames)
+        want = {algo: chip_smoke.separate_steps_want(algo, n, 30)
+                for algo in ("iss", "tiss", "tip", "ip", "ilrma_t")}
+        assert want == {"iss": (30, 0), "tiss": (30, 30), "tip": (10, 10), "ip": (0, 0),
+                        "ilrma_t": (0, 0)}
+    assert chip_smoke.separate_steps_want("iss", chip_smoke.samples_for_frames(257), 30) == (0, 0)
+    assert chip_smoke.steps_want(126, 5, 3, 15) == (15, 15)
+    assert chip_smoke.steps_want(512, 8, 5, 30) == (0, 0)
+    assert chip_smoke.steps_want(128, 8, 5, 4, torch.complex128) == (0, 0)
 
 
 def test_launch_validation():

@@ -27,6 +27,7 @@ import pytest
 from benchmark import control, run
 from benchmark.check import rel_err_cols
 from benchmark.reference import tiss as ref
+from benchmark.roofline_sources import source_steps_bound, source_steps_bytes
 from benchmark.roofline_taps import tap_steps_bound, tap_steps_bytes
 from benchmark.tests import tiny, tiny_cells
 from benchmark.traffic.generate import make_mixture
@@ -105,6 +106,19 @@ def test_tap_steps_bound_at_the_cell():
     assert what == "bytes" and round(seconds * 1e6, 1) == 108.5
 
 
+@pytest.mark.parametrize("J", [48, 8])
+def test_source_steps_bound_at_the_cell(J):
+    """8 rooms of 513 bins folded, bucket 192, M=8: Y read and written
+    100.9 MB, phi 49 kB, and the rows of width J read and written: 25.2 MB
+    of augmented rows at 5 taps (J=48, 37.6 us in all), 4.2 MB of square
+    ones (J=8, ISS)."""
+    T, BF, B, M = 192, 8 * 513, 8, 8
+    rows = {48: 25_214_976, 8: 4_202_496}[J]
+    assert source_steps_bytes(T, BF, B, M, J) == 100_859_904 + 49_152 + rows
+    seconds, what = source_steps_bound(T, BF, B, M, J)
+    assert what == "bytes" and round(seconds * 1e6, 1) == {48: 37.6, 8: 31.4}[J]
+
+
 @pytest.fixture
 def root(tmp_path):
     return tiny_cells.write_bench(tmp_path, cells={**tiny.CELLS, **tiny_cells.MORE})
@@ -116,8 +130,8 @@ def _cell(root):
 
 @pytest.mark.parametrize("trace", [False, True])
 def test_tiny_tiss_cell_runs(root, trace):
-    """Untraced: the end-to-end metrics. Traced: the six T-ISS metrics;
-    the three read from the device trace find no device on the CPU."""
+    """Untraced: the end-to-end metrics. Traced: the nine T-ISS metrics;
+    the five read from the device trace find no device on the CPU."""
     res = tiny.run_tiny(root, "tiny_tiss", trace)
     assert res["correct"] is True, res["compared"]
     assert res["attempted"] > 0 and res["failed"] == 0
@@ -127,9 +141,12 @@ def test_tiny_tiss_cell_runs(root, trace):
         return
     names = {m["name"] for m in _cell(root).per_layer}
     assert names == {"epoch_ms.tiss", "launches_per_epoch.tiss", "idle_frac.tiss",
-                     "tap_ms.tiss", "tap_share.tiss", "tap_hbm_frac.tiss"}
-    assert set(got) == {"epoch_ms.tiss", "tap_ms.tiss", "launches_per_epoch.tiss"}
+                     "tap_ms.tiss", "tap_share.tiss", "tap_hbm_frac.tiss", "source_ms.tiss",
+                     "source_share.tiss", "source_hbm_frac.tiss"}
+    assert set(got) == {"epoch_ms.tiss", "tap_ms.tiss", "source_ms.tiss",
+                        "launches_per_epoch.tiss"}
     assert 0 < got["tap_ms.tiss"]["value"] < got["epoch_ms.tiss"]["value"]
+    assert 0 < got["source_ms.tiss"]["value"] < got["epoch_ms.tiss"]["value"]
     assert got["launches_per_epoch.tiss"]["value"] == 0.0
 
 

@@ -7,9 +7,10 @@ Gates:
   ``request`` a call, one ``family.start`` and ``n_iter`` numbered
   ``family.epoch`` spans, and the counts (bytes, frames, bins, matrices);
 - the start and epochs of each family that ``run_family`` runs;
-- T-ISS's start, its epochs (``taps``) and the ``tiss.taps`` span inside
-  each (``steps``, ``bins``, ``frames``, ``outputs``), and its outputs bit
-  for bit with tracing on and off;
+- T-ISS's start, its epochs (``taps``) and the ``tiss.sources`` and
+  ``tiss.taps`` spans inside each (``steps``, ``bins``, ``frames``,
+  ``outputs``; the sources' row ``width``), and its outputs bit for bit
+  with tracing on and off;
 - with tracing off nothing is recorded and no stage reaches a running
   profiler; the outputs are bit for bit the same with it on;
 - each exported span agrees with its ``torch.profiler`` annotation within
@@ -107,8 +108,9 @@ def test_family_spans(algo, init_eig, mats):
         run_family(X, N_SRC, N_ITER, "laplace", algo, init_eig=init_eig)
     assert [s["name"] for s in tr.spans] == ["family.start"] + ["family.epoch"] * N_ITER
     assert tr.spans[0]["counts"] == {"mats": F if mats else 0}
-    # the IP epochs say whether they ran the update_rows kernel (never on the CPU)
-    routed = {"kernel": 0} if algo == "ip" else {}
+    # the IP and ISS epochs say whether they ran their kernel, update_rows or
+    # iss_steps (never on the CPU)
+    routed = {"kernel": 0} if algo in ("ip", "iss") else {}
     assert [s["counts"] for s in tr.spans[1:]] == [{"index": i, "bins": F, **routed}
                                                    for i in range(N_ITER)]
 
@@ -224,26 +226,33 @@ def tiss_sep():
 @pytest.mark.parametrize("how", sorted(ROOTS))
 def test_tiss_spans(tiss_sep, clips, how):
     """T-ISS's start (augmentation, augmented identity, first demix), its
-    epochs and, inside each, its tap steps, with their counts."""
+    epochs and, inside each, its source steps and then its tap steps, with
+    their counts."""
     with profiling.tracing() as tr:
         sent, _ = _call(tiss_sep, clips, how)
     spans = tr.spans
     assert [s["name"] for s in spans[1:]] == (
-        ["serve.upload", "serve.analysis", "family.start"] + ["family.epoch", "tiss.taps"] * N_ITER
+        ["serve.upload", "serve.analysis", "family.start"]
+        + ["family.epoch", "tiss.sources", "tiss.taps"] * N_ITER
         + ["api.proj_back", "serve.synthesis", "serve.download"])
     B, F = len(sent), tiss_sep.nfft // 2 + 1
     T = tiss_sep._prep_clip(sent[0].shape[0])[1]
     start = spans[3]
     assert start["counts"] == {"mats": 0} and start["parent"] == spans[0]["id"]
     epochs = [s for s in spans if s["name"] == "family.epoch"]
+    sources = [s for s in spans if s["name"] == "tiss.sources"]
     taps = [s for s in spans if s["name"] == "tiss.taps"]
     assert [s["counts"] for s in epochs] == [{"index": i, "bins": B * F, "taps": M * TISS_TAPS}
                                             for i in range(N_ITER)]
-    # on the CPU the tap steps take the plain version: kernel 0
+    # on the CPU the source and tap steps take the plain versions: kernel 0
+    assert [s["counts"] for s in sources] == [{"steps": M, "bins": B * F, "frames": T,
+                                               "outputs": M, "width": M * (1 + TISS_TAPS),
+                                               "kernel": 0}] * N_ITER
     assert [s["counts"] for s in taps] == [{"steps": M * TISS_TAPS, "bins": B * F, "frames": T,
                                             "outputs": M, "kernel": 0}] * N_ITER
-    for e, t in zip(epochs, taps):
-        assert t["parent"] == e["id"] and e["t0_ns"] <= t["t0_ns"] < t["t1_ns"] <= e["t1_ns"]
+    for e, s, t in zip(epochs, sources, taps):
+        assert s["parent"] == t["parent"] == e["id"]
+        assert e["t0_ns"] <= s["t0_ns"] < s["t1_ns"] <= t["t0_ns"] < t["t1_ns"] <= e["t1_ns"]
 
 
 @pytest.mark.parametrize("how", sorted(ROOTS))
