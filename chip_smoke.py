@@ -37,6 +37,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (square rows, other M and T), with the kernel's time queued behind a
    device-side sleep, the plain version's time, the bound, and every
    instantiation's registers and spills from the build (none may spill);
+3f. bin weights: both steering kernels with a weight a bin (phi (T, B*F,
+   M), ``n_mix`` = B*F: ILRMA-T's steps) at the ``ilrmat_batch`` cell's
+   shapes (T=192 with 189 real frames, 8 folded rooms of 513 bins, M=3,
+   5 taps: J=18, MK=15) and at a ragged one, against their plain
+   versions at complex128, with each kernel's time queued behind a
+   device-side sleep, the plain versions' times and both byte floors;
 4. trajectory: OverIVA in complex128 on the card against the float64 NumPy
    oracle at full width (M=8, N=3, nfft 4096, T=128), 10 iterations;
 5. main path: stft_analysis -> overiva (wcov="f32" and "bf16pack", complex64,
@@ -92,7 +98,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    "tip"|"ilrma_t")`` and ``separate(wpe=True)`` at three lengths; both
    kernels' counters zeroed before each joint run and read after:
    ``wcov_packed`` at 0, ``update_rows`` at the run's complex64 f32
-   OverIVA-IP epochs (a fixed count: WPE -> OverIVA, ``REGISTRY_IP``);
+   OverIVA-IP epochs (a fixed count: WPE -> OverIVA, ``REGISTRY_IP``),
+   and ``iss_steps`` / ``tap_steps`` once an epoch of every complex64 T-ISS
+   or ILRMA-T epoch within their routes;
 10. streaming: rooms from the port's simulation copy
    (``overiva_tpu_torch.sim``, ``examples/streaming.py``'s room and
    ``examples/parity_check.py``'s); ``OnlineAuxIVAISS`` in complex128 on
@@ -678,6 +686,61 @@ def phase_source_kernel(dev, seed):
             result.update({"max_rel_err": max(errs[:2]), "ms": ms, "plain_ms": plain_ms,
                            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
         log(line)
+    return result
+
+
+def phase_bin_weights(dev, seed):
+    """Both steering kernels with a weight a bin, as ILRMA-T's epochs run
+    them (phase 3f)."""
+    from overiva_tpu_torch.ops.iss_steps import iss_steps, iss_steps_reference
+    from overiva_tpu_torch.ops.tap_steps import tap_steps, tap_steps_reference
+
+    rng = np.random.default_rng(seed + 7)
+    result = {}
+    for T, real, B, F, m, taps, timed in [
+        (192, 189, 8, 513, 3, 5, True),  # the ilrmat_batch cell
+        (100, 97, 3, 65, 5, 2, False),
+    ]:
+        BF, MK = B * F, m * taps
+
+        def cplx(*shape):
+            z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+            return torch.from_numpy(z.astype(np.complex64)).to(dev)
+
+        Xt, P, Y = cplx(T, BF, m + MK), cplx(BF, m, m + MK), cplx(T, BF, m)
+        Xt[:T - real], Y[:T - real] = 0, 0  # the bucket's padding, in front
+        phi = torch.from_numpy((rng.random((T, BF, m)) + 0.1).astype(np.float32)).to(dev)
+        Z = Xt[:, :, m:]
+        d = [t.to(torch.complex128) for t in (P, Y, Z)] + [phi.double()]
+        runs = {
+            "iss_steps": (lambda: iss_steps(P, Y, phi, BF),
+                          lambda: iss_steps_reference(P, Y, phi, BF),
+                          iss_steps_reference(d[0], d[1], d[3], BF),
+                          iss_steps_bound(T, BF, BF, m, m + MK)),
+            "tap_steps": (lambda: tap_steps(P, Y, Z, phi, BF),
+                          lambda: tap_steps_reference(P, Y, Z, phi, BF),
+                          tap_steps_reference(*d, BF),
+                          tap_steps_bound(T, BF, BF, m, MK)),
+        }
+        for name, (kernel, plain, (P_d, Y_d), (bound_ms, bound_by)) in runs.items():
+            P_k, Y_k = kernel()
+            torch.cuda.synchronize()
+            errs = [((a.to(torch.complex128) - b).abs().max() / b.abs().max()).item()
+                    for a, b in ((P_k, P_d), (Y_k, Y_d))]
+            line = (f"[bin weights] {name} T={T} ({real} real) B={B} F={F} M={m} "
+                    f"MK={MK}, phi (T, {BF}, {m}): vs complex128 max|dP| {errs[0]:.2e}, "
+                    f"max|dY| {errs[1]:.2e} (tol {TAPS_TOL:g})")
+            if not max(errs) <= TAPS_TOL or Y_k[:T - real].any():
+                raise AssertionError(line)
+            if timed:
+                ms = cuda_ms(kernel, queued=True)
+                plain_ms = cuda_ms(plain)
+                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                         f"{bound_ms * 1e3:.2f} us ({bound_by}) = "
+                         f"{100 * bound_ms / ms:.1f} % of the kernel (20 runs)")
+                result[name] = {"max_rel_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": bound_ms}
+            log(line)
     return result
 
 
@@ -1649,7 +1712,7 @@ def phase_joint(dev, seed, main):
         ("tip", lambda a, X5, X3: a.tip(X5, n_src=N, taps=3, delay=2, n_iter=5, warm_iter=5),
          0, steps_want(Tq, QUALITY_M, 3, 5)),
         ("ilrma_t", lambda a, X5, X3: a.ilrma_t(X3, taps=3, delay=2, n_iter=15, seed=5), 0,
-         (0, 0)),
+         steps_want(Tq, N, 3, 15)),
         ("wpe+overiva", lambda a, X5, X3: a.overiva(a.wpe(X5, taps=3, delay=2, n_iter=2),
                                                    n_src=N, n_iter=15), 15, (0, 0)),
     ]
@@ -1684,7 +1747,7 @@ def phase_joint(dev, seed, main):
     X = api.stft_analysis(x, NFFT, device=dev)
     if X.shape != (JOINT_T, NFFT // 2 + 1, M):
         raise AssertionError(f"joint STFT shape {tuple(X.shape)}")
-    runs = [  # (name, epochs, run, whether its epochs are OverIVA-IP ones, its T-ISS epochs)
+    runs = [  # (name, epochs, run, whether its epochs are OverIVA-IP ones, its steered epochs)
         ("wpe (taps 5, delay 2)", 2, lambda k: api.wpe(X, taps=5, delay=2, n_iter=k), False,
          0),
         ("wpe 2 it -> overiva", 30,
@@ -1695,7 +1758,7 @@ def phase_joint(dev, seed, main):
          10),
         ("tip bf16, after 10 T-ISS epochs", 10,
          lambda k: api.tip(X, n_src=N, n_iter=k, wcov="bf16"), False, 10),
-        ("ilrma_t", 30, lambda k: api.ilrma_t(X, n_iter=k), False, 0),
+        ("ilrma_t", 30, lambda k: api.ilrma_t(X, n_iter=k), False, 30),
     ]
     for name, k, fn, ip, tiss_epochs in runs:
         # T = 512 frames: past the kernels' 256, so no T-ISS epoch launches them
@@ -1770,8 +1833,9 @@ def steps_since(before):
 
 def steps_want(T, m, taps, epochs, dtype=torch.complex64):
     """The launches of (``iss_steps``, ``tap_steps``) that ``epochs`` ISS
-    (taps 0) or T-ISS epochs make on T frames of m channels: one of each
-    kernel an epoch that runs it, none where its route does not hold."""
+    (taps 0), T-ISS or ILRMA-T epochs make on T frames of m channels: one
+    of each kernel an epoch that runs it, none where its route does not
+    hold."""
     from overiva_tpu_torch.ops import iss_steps, tap_steps
 
     MK = m * taps
@@ -1782,13 +1846,13 @@ def steps_want(T, m, taps, epochs, dtype=torch.complex64):
 def separate_steps_want(algo, n_samples, n_iter, nfft=4096):
     """:func:`steps_want` for ``api.separate(algo=...)`` with its defaults
     (complex64, nfft 4096, hop nfft / 2, taps 5) on a clip of ``n_samples``
-    samples of M mics: ``n_iter`` ISS or T-ISS epochs, T-IP's 10 warm T-ISS
-    epochs, no such epoch under the other algorithms."""
+    samples of M mics: ``n_iter`` ISS, T-ISS or ILRMA-T epochs, T-IP's 10
+    warm T-ISS epochs, no such epoch under the other algorithms."""
     from overiva_tpu_torch.ops import stft
 
     hop = nfft // 2
     T = stft.n_frames_of(stft.stft_pad(torch.zeros(n_samples), nfft, hop).shape[0], nfft, hop)
-    epochs = {"iss": n_iter, "tiss": n_iter, "tip": 10}.get(algo, 0)
+    epochs = {"iss": n_iter, "tiss": n_iter, "tip": 10, "ilrma_t": n_iter}.get(algo, 0)
     return steps_want(T, M, 0 if algo == "iss" else 5, epochs)
 
 
@@ -2873,6 +2937,8 @@ def main():
     entry_launches = timed("entry", phase_entry, dev)
     taps = timed("tap kernel", phase_tap_kernel, dev, seed)
     sources = timed("source kernel", phase_source_kernel, dev, seed)
+    bins = timed("bin weights", phase_bin_weights, dev, seed)
+    taps["bin_weights"], sources["bin_weights"] = bins["tap_steps"], bins["iss_steps"]
 
     rng = np.random.default_rng(seed)
     mix, images = make_mixture(rng, N, M, samples_for_frames(128))
@@ -2906,7 +2972,8 @@ def main():
 def phases(dev, seed, timed, kernel, fused, taps, sources, mix, images, X64, oracle_jobs,
            serving, serve_oracles, scenes, pool, entry_launches):
     """Phases 4-14 and the kernels line (``kernel``, ``fused``, ``taps``,
-    ``sources``: phases 3, 3b, 3d and 3e's entries; ``entry_launches``:
+    ``sources``: phases 3, 3b, 3d and 3e's entries, the last two with phase
+    3f's; ``entry_launches``:
     phase 3c's), on phase 5's mixture
     ``mix`` (its STFT ``X64``);
     ``oracle_jobs``: phase 8's oracle runs; ``serving`` and

@@ -53,10 +53,8 @@ from .models import online_iss as _online_iss
 from .models import online_tiss as _online_tiss
 from .models import online_wpe as _online_wpe
 from .models import overiva as _core
-from .models import ilrma_t as _ilrma_t
 from .models import sparseauxiva as _sparse
-from .models import tiss as _tiss
-from .models.family import FAMILIES, JOINT, _augmented_w0, chunked, run_family, run_joint
+from .models.family import FAMILIES, JOINT, chunked, run_family, run_ilrma_t, run_joint
 from .models.source_models import MODELS
 from .ops import projection as _proj
 from .ops import stft as _stft
@@ -714,17 +712,35 @@ def _seeds(seed, seeds, n):
     return seeds
 
 
-def _nmf_init(seeds, N, F, K, T, cdtype, device):
+def _check_frames(frames, T, n):
+    """Each mixture's real frame count, as ints in [1, T], or None."""
+    if frames is None:
+        return None
+    frames = [int(f) for f in frames]
+    if len(frames) != n:
+        raise ValueError(f"frames must have batch length {n}")
+    if any(not 1 <= f <= T for f in frames):
+        raise ValueError(f"frames must lie in [1, {T}], got {frames}")
+    return frames
+
+
+def _nmf_init(seeds, N, F, K, T, cdtype, device, frames=None):
     """Each mixture's NMF start, (nb, N, F, K) basis and (nb, N, K, T)
     activations: one ``default_rng(seed).random`` draw each, basis first,
-    plus 0.1, as the JAX package draws them."""
+    plus 0.1, as the JAX package draws them. ``frames``: each mixture's
+    real frame count, its padding at the front; its activations are drawn
+    at that count and placed on the last frames, zero before them."""
     rdtype = _real_np(cdtype)
-    basis, act = [], []
-    for s in seeds:
+    frames = [T] * len(seeds) if frames is None else frames
+    basis, act = [], np.zeros((len(seeds), N, K, T), rdtype)
+    for b, (s, n) in enumerate(zip(seeds, frames)):
         rng = np.random.default_rng(s)
         basis.append((rng.random((N, F, K)) + 0.1).astype(rdtype))
-        act.append((rng.random((N, K, T)) + 0.1).astype(rdtype))
-    return as_tensor(np.stack(basis), None, device), as_tensor(np.stack(act), None, device)
+        act[b, :, :, T - n:] = rng.random((N, K, n)) + 0.1
+    # asynchronous uploads: CUDA stages a copy from pageable memory before
+    # the call returns, and waits for nothing queued on the device
+    return tuple(torch.from_numpy(a).to(device, non_blocking=True)
+                 for a in (np.stack(basis), act))
 
 
 def _eyes(nb, F, M, dtype, device):
@@ -1194,34 +1210,28 @@ def ilrma_t(
     seed=0,
     dtype=None,
     device=None,
+    frames=None,
 ):
     """ILRMA-T: joint dereverberation + ILRMA, the NMF model driving T-ISS
     steering on ``[X | delayed taps]`` (``models/ilrma_t.py``; oracle twin
     ``oracle/ilrma_t.py``). Determined (n_src == n_chan); ``taps=0`` is
     ILRMA-ISS. The NMF init is one ``default_rng(seed).random`` draw each
-    for basis and activations, as the oracle's.
+    for basis and activations, as the oracle's. ``frames``: the real frame
+    count of an X whose first frames are zero padding (the serving tier's
+    bucket): the run is then that of the real frames alone, its
+    activations drawn at that count.
 
     Returns Y (n_frames, n_freq, n_chan) [, P]."""
     T, F, M = X.shape
     _determined(n_src, M, "ilrma_t")
     taps, delay = _check_taps(taps, delay)
+    frames = None if frames is None else _check_frames([frames], T, 1)
     numpy_in, cdtype, Xd = _setup(X, dtype, device)
-    Xt = _tiss.augment_taps(Xd, taps, delay)
-    if W0 is None:
-        P = _tiss.augmented_eye(Xt, M)
-    else:
-        P = _augmented_w0(W0, F, M, M, taps, cdtype, Xd.device)
-    Xt, P = Xt[None], P[None]
-    B, H = _nmf_init([seed], M, F, int(n_components), T, cdtype, Xd.device)
-
-    def run(state, steps):
-        P, Y, B, H = state
-        return _ilrma_t.ilrma_t_iterations(Xt, P, B, H, steps, M, Y=Y)
-
-    P, Y, _, _ = chunked(run, (P, _ilrma_t.ilrma_t_demix(Xt, P), B, H), n_iter,
-                         _scaled_callback(callback, Xd, numpy_in), callback_every,
-                         lambda s: s[1][0])
-    return _outputs(Y[0], P[0], Xd, proj_back, return_filters, numpy_in)
+    B, H = _nmf_init([seed], M, F, int(n_components), T, cdtype, Xd.device, frames)
+    Y, P = run_ilrma_t(Xd, int(n_iter), B, H, taps, delay, W0=W0, frames=frames,
+                       callback=_scaled_callback(callback, Xd, numpy_in),
+                       callback_every=callback_every)
+    return _outputs(Y, P, Xd, proj_back, return_filters, numpy_in)
 
 
 def tiss_batch(X, n_src=None, taps=5, delay=2, n_iter=20, proj_back=True, model="laplace",
@@ -1256,23 +1266,27 @@ def tip_batch(X, n_src=None, taps=5, delay=2, n_iter=10, warm_iter=10, proj_back
 
 
 def ilrma_t_batch(X, n_src=None, taps=5, delay=2, n_iter=20, proj_back=True, n_components=2,
-                  seed=0, seeds=None, dtype=None, device=None):
-    """A batch (B, T, F, M) through ILRMA-T, with a leading batch axis (the
-    NMF activations and the renormalization sum over each mixture's own
-    bins). Element b's NMF init is ``ilrma_t(X[b], seed=seed + b)``'s, or
-    ``seed=seeds[b]``. Returns (B, T, F, M)."""
+                  seed=0, seeds=None, dtype=None, device=None, frames=None):
+    """A batch (B, T, F, M) through ILRMA-T, folded into the bin axis as
+    T-ISS's batch is (the NMF activations and the renormalization sum over
+    each mixture's own bins). Element b's NMF init is
+    ``ilrma_t(X[b], seed=seed + b)``'s, or ``seed=seeds[b]``; with
+    ``frames`` and no ``seeds``, each element runs as
+    ``ilrma_t(X[b], seed=seed, frames=frames[b])``, so that a clip's start
+    does not depend on its place in the batch. Returns (B, T, F, M)."""
     _check_batch(X, "ilrma_t_batch")
     nb, T, F, M = X.shape
     _determined(n_src, M, "ilrma_t")
     taps, delay = _check_taps(taps, delay)
+    frames = _check_frames(frames, T, nb)
+    if frames is not None and seeds is None:
+        seeds = [seed] * nb
     seeds = _seeds(seed, seeds, nb)
     numpy_in, cdtype, Xb = _setup(X, dtype, device)
-    B, H = _nmf_init(seeds, M, F, int(n_components), T, cdtype, Xb.device)
-    Xt = _tiss.augment_taps(Xb, taps, delay)
-    P = _tiss.augmented_eye(Xt[0], M).expand(nb, -1, -1, -1)
-    _, Y, _, _ = _ilrma_t.ilrma_t_iterations(Xt, P, B, H, int(n_iter), M)
+    B, H = _nmf_init(seeds, M, F, int(n_components), T, cdtype, Xb.device, frames)
     Xf = _core.fold_mixtures(Xb)
-    return _batch_out(_core.fold_mixtures(Y), Xf, nb, proj_back, numpy_in)
+    Y, _ = run_ilrma_t(Xf, int(n_iter), B, H, taps, delay, frames=frames)
+    return _batch_out(Y, Xf, nb, proj_back, numpy_in)
 
 
 # -------------------------------------------------------------- streaming
@@ -1584,14 +1598,12 @@ def _separate_ilrma_t(X, n_src, n_iter, taps, delay):
     ``utils/threefry.py``), the n_src most energetic outputs kept. Returns
     the unscaled outputs (T, F, n_src)."""
     T, F, M = X.shape
-    Xt = _tiss.augment_taps(X, taps, delay)
-    P = _tiss.augmented_eye(Xt, M)
     rnp = np.dtype(_real_np(X.dtype))
     k1, k2 = threefry.split(threefry.prng_key(0))
     B = as_tensor(threefry.uniform(k1, (M, F, 2), rnp) + rnp.type(0.1), None, X.device)
     H = as_tensor(threefry.uniform(k2, (M, 2, T), rnp) + rnp.type(0.1), None, X.device)
-    _, Y, _, _ = _ilrma_t.ilrma_t_iterations(Xt[None], P[None], B[None], H[None], n_iter, M)
-    return _mnmf.pick_loudest(Y, n_src)[0]
+    Y, _ = run_ilrma_t(X, n_iter, B[None], H[None], taps, delay)
+    return _mnmf.pick_loudest(Y[None], n_src)[0]
 
 
 def separate(

@@ -19,6 +19,9 @@ serving tier runs.
   ``W0``), carrying (P, Y) across callback chunks;
 - ``"tip"``: T-IP (``models/tip.py``), from the same start, after a T-ISS
   warm start when it starts from the identity with taps.
+
+:func:`run_ilrma_t`: ILRMA-T (``models/ilrma_t.py``) from T-ISS's start,
+with a given NMF start.
 """
 
 from __future__ import annotations
@@ -28,12 +31,13 @@ import torch
 from ..utils.convert import as_tensor
 from ..utils.profiling import span
 from .auxiva_iss import auxiva_iss_iterations
+from .ilrma_t import ilrma_t_iterations
 from .overiva import demix, overiva_iterations, prepare
 from .overiva_ip2 import overiva_ip2_iterations
 from .tip import tip_iterations
 from .tiss import augment_taps, augmented_eye, tiss_iterations
 
-__all__ = ["FAMILIES", "JOINT", "chunked", "run_family", "run_joint"]
+__all__ = ["FAMILIES", "JOINT", "chunked", "run_family", "run_ilrma_t", "run_joint"]
 
 FAMILIES = ("ip", "iss", "ip2")
 JOINT = ("tiss", "tip")
@@ -123,6 +127,18 @@ def _augmented_w0(W0, F, M, N, taps, dtype, device):
     return P0
 
 
+def _joint_start(X, n_src: int, taps: int, delay: int, W0):
+    """The joint families' start on X (T, F, M): the input with ``taps``
+    delayed copies appended, Xt (T, F, M + M*taps), and the augmented
+    identity, or ``W0`` made the augmented stack (:func:`_augmented_w0`).
+    Returns (Xt, P)."""
+    F, M = X.shape[1:]
+    Xt = augment_taps(X, taps, delay)
+    if W0 is None:
+        return Xt, augmented_eye(Xt, M)
+    return Xt, _augmented_w0(W0, F, M, n_src, taps, X.dtype, X.device)
+
+
 def run_joint(X, n_src: int, n_iter: int, model: str, algo: str = "tiss", taps: int = 5,
               delay: int = 2, warm_iter: int = 0, wcov: str = "f32", W0=None,
               n_mix: int = 1, callback=None, callback_every: int = 10):
@@ -139,14 +155,10 @@ def run_joint(X, n_src: int, n_iter: int, model: str, algo: str = "tiss", taps: 
     ``callback_every`` epochs.
 
     Returns (Y (T, F, n_src) unscaled, P (F, M, M + M*taps))."""
-    F, M = X.shape[1:]
+    M = X.shape[2]
     N = n_src
     with span("family.start", mats=0):
-        Xt = augment_taps(X, taps, delay)
-        if W0 is None:
-            P = augmented_eye(Xt, M)
-        else:
-            P = _augmented_w0(W0, F, M, N, taps, X.dtype, X.device)
+        Xt, P = _joint_start(X, N, taps, delay, W0)
         warm = algo == "tip" and W0 is None and warm_iter > 0 and taps > 0
         Y = demix(Xt, P) if algo == "tiss" or warm else None
         if warm:
@@ -163,3 +175,27 @@ def run_joint(X, n_src: int, n_iter: int, model: str, algo: str = "tiss", taps: 
 
     P = chunked(run, P, n_iter, callback, callback_every, lambda P: demix(Xt, P[:, :N, :]))
     return demix(Xt, P[:, :N, :]), P
+
+
+def run_ilrma_t(X, n_iter: int, B, H, taps: int = 5, delay: int = 2, W0=None, frames=None,
+                callback=None, callback_every: int = 10):
+    """ILRMA-T on X (T, F, M), which holds the folded mixtures of the NMF
+    start B (nb, M, F / nb, K), H (nb, M, K, T): T-ISS's start in one
+    ``family.start`` span (the tap augmentation, the augmented identity or
+    ``W0``, the first demix), then ``n_iter`` epochs. ``frames``: each
+    mixture's real frame count, its padding at the front
+    (``models/ilrma_t.py``), or None. ``callback(Y)`` receives the unscaled
+    outputs (T, F, M) before every ``callback_every`` epochs.
+
+    Returns (Y (T, F, M) unscaled, P (F, M, M + M*taps))."""
+    M = X.shape[2]
+    with span("family.start", mats=0):
+        Xt, P = _joint_start(X, M, taps, delay, W0)
+        Y = demix(Xt, P)
+
+    def run(state, steps):  # resumes from (P, Y, B, H), never re-demixes
+        P, Y, B, H = state
+        return ilrma_t_iterations(Xt, P, B, H, steps, M, Y=Y, frames=frames)
+
+    P, Y, _, _ = chunked(run, (P, Y, B, H), n_iter, callback, callback_every, lambda s: s[1])
+    return Y, P

@@ -20,8 +20,9 @@ Per epoch:
 ``n_src < M`` adds the phi = 1 background outputs, as OverIVA-ISS. At
 taps = 0 an epoch is the ISS epoch exactly. Folded mixtures (``n_mix``,
 ``models/overiva.py::fold_mixtures``) each get their own activations.
-Each epoch is a ``family.epoch`` span (``index``, ``bins``, ``taps`` =
-MK), its source steps a ``tiss.sources`` span (``steps`` = M, ``bins``,
+The steering half of an epoch, :func:`steer`, is ILRMA-T's too
+(``models/ilrma_t.py``, with a weight a bin). Each epoch is a
+``family.epoch`` span (``index``, ``bins``, ``taps`` = MK), its source steps a ``tiss.sources`` span (``steps`` = M, ``bins``,
 ``frames``, ``outputs`` = M, ``width`` = M + MK, ``kernel``: 1 where the
 steps ran the ``iss_steps`` kernel) and its tap steps a ``tiss.taps`` span
 (``steps`` = MK, ``bins``, ``frames``, ``outputs`` = M, ``kernel``: 1 where
@@ -39,7 +40,7 @@ from ..utils.profiling import span
 from .auxiva_iss import iss_phi
 from .overiva import demix
 
-__all__ = ["augment_taps", "augmented_eye", "tap_steps", "tiss_iterations"]
+__all__ = ["augment_taps", "augmented_eye", "steer", "tap_steps", "tiss_iterations"]
 
 
 def augment_taps(X, taps: int, delay: int):
@@ -57,13 +58,14 @@ def augmented_eye(Xt, n_chan: int):
     return P
 
 
-def _tiss_epoch(Xt, P, Y, model: str, n_chan: int, n_src=None, n_mix: int = 1, group=None,
-                n_freq=None, bin_mask=None):
-    """One T-ISS epoch. Xt: (T, B*F, MJ); P: (B*F, M, MJ); Y: (T, B*F, M).
-    ``group``, ``n_freq``, ``bin_mask``: bin sharding; the tap steps are
-    bin-local, so the power psum of :func:`iss_phi` stays the one
-    collective. Returns the new (P, Y)."""
-    phi = iss_phi(Y, model, n_src, n_mix, group, n_freq, bin_mask)
+def steer(Xt, P, Y, phi, n_chan: int, n_mix: int = 1):
+    """The steering half of a T-ISS epoch, given its weights phi (T, n_mix,
+    M): the M source steps (``ops/iss_steps.py::iss_steps``, in a
+    ``tiss.sources`` span), then, with taps, the M x taps tap steps against
+    z_j = Xt[:, :, n_chan + j] (``ops/tap_steps.py``, in a ``tiss.taps``
+    span); each one kernel launch where its route holds, else the plain
+    steps. Xt: (T, B*F, MJ); P: (B*F, M, MJ); Y: (T, B*F, M). ``n_mix`` =
+    B*F gives every bin its own weights (ILRMA-T). Returns the new (P, Y)."""
     T, BF, M = Y.shape
     route = steps_route(P, Y)
     with span("tiss.sources", steps=M, bins=BF, frames=T, outputs=M, width=P.shape[2],
@@ -76,6 +78,16 @@ def _tiss_epoch(Xt, P, Y, model: str, n_chan: int, n_src=None, n_mix: int = 1, g
         with span("tiss.taps", steps=MK, bins=BF, frames=T, outputs=M, kernel=int(route)):
             P, Y = steps(P, Y, Xt[:, :, n_chan:], phi, n_mix)
     return P, Y
+
+
+def _tiss_epoch(Xt, P, Y, model: str, n_chan: int, n_src=None, n_mix: int = 1, group=None,
+                n_freq=None, bin_mask=None):
+    """One T-ISS epoch. Xt: (T, B*F, MJ); P: (B*F, M, MJ); Y: (T, B*F, M).
+    ``group``, ``n_freq``, ``bin_mask``: bin sharding; the tap steps are
+    bin-local, so the power psum of :func:`iss_phi` stays the one
+    collective. Returns the new (P, Y)."""
+    phi = iss_phi(Y, model, n_src, n_mix, group, n_freq, bin_mask)
+    return steer(Xt, P, Y, phi, n_chan, n_mix)
 
 
 def tiss_iterations(Xt, P, n_iter: int, model: str, n_chan: int, n_src=None, Y=None,

@@ -1,5 +1,5 @@
-"""The source-steering steps of an ISS or T-ISS epoch
-(``models/auxiva_iss.py``, ``models/tiss.py``).
+"""The source-steering steps of an ISS, T-ISS or ILRMA-T epoch
+(``models/auxiva_iss.py``, ``models/tiss.py::steer``).
 
 Given the weights phi (T, B, M) of an epoch, the M steps, in order: for
 step n, the weighted least-squares coefficients v of every output on y_n
@@ -20,7 +20,8 @@ width J (T-ISS steers its augmented rows).
   reads it off the tensors, once an epoch loop, for the spans and the call.
 
 Folded mixtures (``models/overiva.py::fold_mixtures``): bin f is weighted
-by the phi of mixture f // (B*F / B).
+by the phi of mixture f // (B*F / B). At ``n_mix`` = B*F every bin has
+weights of its own, phi (T, B*F, M): ILRMA-T's per-(t, f) weights.
 """
 
 from __future__ import annotations

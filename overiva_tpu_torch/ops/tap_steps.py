@@ -1,4 +1,5 @@
-"""The tap-steering steps of a T-ISS epoch (``models/tiss.py``).
+"""The tap-steering steps of a T-ISS or ILRMA-T epoch
+(``models/tiss.py::steer``).
 
 Given the weights phi (T, B, M) of an epoch, the MK = M x taps steps, in
 order, against the delayed observations z_j = Xt[:, :, M + j]: weighted
@@ -13,13 +14,14 @@ coefficients.
   from its strided view, one launch an epoch) for CUDA tensors, the plain
   version for CPU tensors. On a CUDA tensor it launches the kernel or
   raises.
-- :func:`kernel_route` is the rule by which a T-ISS epoch
-  (``models/tiss.py::_tiss_epoch``) runs the kernel: CUDA, complex64, and
+- :func:`kernel_route` is the rule by which a T-ISS or ILRMA-T epoch
+  (``models/tiss.py::steer``) runs the kernel: CUDA, complex64, and
   M, MK and T within the kernel's limits (:data:`MAX_M`, :data:`MAX_MK`,
   :data:`MAX_T`).
 
 Folded mixtures (``models/overiva.py::fold_mixtures``): bin f is weighted
-by the phi of mixture f // (B*F / B).
+by the phi of mixture f // (B*F / B). At ``n_mix`` = B*F every bin has
+weights of its own, phi (T, B*F, M): ILRMA-T's per-(t, f) weights.
 """
 
 from __future__ import annotations

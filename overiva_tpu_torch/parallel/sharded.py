@@ -310,17 +310,18 @@ def sharded_ilrma(mesh, X_batch, n_iter: int = 20, n_components: int = 2, seed: 
 
 def sharded_ilrma_t(mesh, X_batch, taps: int = 5, delay: int = 2, n_iter: int = 20,
                     n_components: int = 2, seed: int = 0, proj_back: bool = True):
-    """Determined ILRMA-T (joint dereverberation + ILRMA) over the mesh.
-    NMF init as :func:`sharded_ilrma` (``api.ilrma_t(seed=seed + b)``)."""
+    """Determined ILRMA-T (joint dereverberation + ILRMA) over the mesh,
+    its mixtures folded into the bin axis as :func:`sharded_tiss`'s. NMF
+    init as :func:`sharded_ilrma` (``api.ilrma_t(seed=seed + b)``)."""
     blk = _Block(mesh, X_batch)
-    nb, T, Fl, M = blk.X.shape
+    M = blk.X.shape[3]
     B, H = _nmf_block(blk, M, n_components, seed, blk.X.dtype)
-    Xt = _tiss.augment_taps(blk.X, int(taps), int(delay))
-    P = _tiss.augmented_eye(Xt[0], M).expand(nb, -1, -1, -1)
-    Y = _ilrma_t.ilrma_t_demix(Xt, P)
+    Xt = _core.fold_mixtures(_tiss.augment_taps(blk.X, int(taps), int(delay)))
+    P = _tiss.augmented_eye(Xt, M)
+    Y = _core.demix(Xt, P)
     for _ in range(int(n_iter)):
-        P, Y, B, H = _ilrma_t._ilrma_t_epoch(Xt, P, Y, B, H, M, **blk.hook)
-    return blk.output(_core.fold_mixtures(Y), _core.fold_mixtures(blk.X), proj_back)
+        P, Y, B, H = _ilrma_t.ilrma_t_epoch(Xt, P, Y, B, H, M, **blk.hook)
+    return blk.output(Y, _core.fold_mixtures(blk.X), proj_back)
 
 
 def sharded_fastmnmf2(mesh, X_batch, n_src: int | None = None, n_iter: int = 30,

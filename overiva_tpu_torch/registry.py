@@ -30,6 +30,11 @@ class AlgorithmSpec:
     source. min_src: smallest supported n_src (IP2 needs pairs).
     defaults: the reference's default kwargs. batch: the same algorithm
     over a (B, T, F, M) stack; element b's result matches ``run`` on X[b].
+    frames: the runners take ``frames``, the real frame count of an input
+    whose first frames are zero padding (each element's, as a sequence,
+    for ``batch``): an NMF model's sums over frames need it, where the
+    IP/ISS families' statistics carry a factor that is zero on a zero
+    frame (``serving.py``).
     """
 
     name: str
@@ -39,6 +44,7 @@ class AlgorithmSpec:
     min_src: int = 1
     defaults: dict = field(default_factory=dict)
     batch: Callable | None = None
+    frames: bool = False
 
     def __call__(self, X, n_src=None, **kw):
         params = {**self.defaults, **kw}
@@ -167,7 +173,7 @@ ALGORITHMS: dict[str, AlgorithmSpec] = {
                       defaults={"n_iter": 30, "n_components": 2}, batch=api.ilrma_batch),
         AlgorithmSpec("ilrma-t", api.ilrma_t, determined=True,
                       defaults={"n_iter": 30, "n_components": 2, **_TAPS},
-                      batch=api.ilrma_t_batch),
+                      batch=api.ilrma_t_batch, frames=True),
         AlgorithmSpec("fastmnmf", api.fastmnmf, defaults={"n_iter": 30, "n_components": 2},
                       batch=api.fastmnmf_batch),
         AlgorithmSpec("fastmnmf2", api.fastmnmf2, defaults={"n_iter": 30, "n_components": 2},

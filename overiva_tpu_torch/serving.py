@@ -37,12 +37,19 @@ the first real frames' taps reach back into zeros exactly as the
 unpadded run's zero fill does. Appended padding would put real data in
 the padded frames' tap blocks.
 
-NMF-family algorithms (ilrma, ilrma-t, fastmnmf*) are not
-padding-invariant (their multiplicative-update denominators sum model
-terms over frames without an ``|x|^2`` factor), and sparseauxiva's LASSO
-threshold is scale-absolute. :data:`SERVABLE` lists the algorithms whose
-invariance is gated (``tests/test_torch_serving.py``); anything else
-needs ``allow_unverified=True``, and then runs the same path ungated.
+NMF-family algorithms are not padding-invariant by that argument: their
+multiplicative-update denominators sum model terms over frames without an
+``|x|^2`` factor, and ILRMA-T's steps and renormalization divide by the
+frame count. ilrma-t is served all the same, and exactly: its runner
+takes each clip's real frame count (``frames``, the registry's
+``AlgorithmSpec.frames``), and every sum over frames and division by the
+frame count covers the real frames alone (``models/ilrma_t.py``), with
+each clip's NMF start drawn as :meth:`Separator.separate` of that clip
+alone draws it. ilrma and fastmnmf* take no ``frames``, and
+sparseauxiva's LASSO threshold is scale-absolute. :data:`SERVABLE` lists
+the algorithms whose invariance is gated (``tests/test_torch_serving.py``);
+anything else needs ``allow_unverified=True``, and then runs the same path
+ungated.
 
 **Streams.** Each block runs framing, STFT analysis (``ops/stft.py``),
 the online step (``models/online_iss.py`` or ``models/online_tiss.py``),
@@ -80,8 +87,8 @@ from .utils.profiling import span
 __all__ = ["SERVABLE", "Separator", "StreamingSeparator", "bucket_frames"]
 
 # Padding invariance of every name here is gated against the unpadded
-# pipeline by tests/test_torch_serving.py. Keep the two lists in sync when
-# adding a family.
+# pipeline by tests/test_torch_serving.py. The JAX package's list, in its
+# order, then ilrma-t, which only the port serves.
 SERVABLE = (
     "auxiva",
     "auxiva-gauss",
@@ -97,11 +104,13 @@ SERVABLE = (
     "auxiva_pca-iss",
     "five",
     # joint dereverberation + separation: exact because the padding is
-    # prepended (ilrma-t stays out: NMF model)
+    # prepended
     "tiss",
     "tiss-gauss",
     "tip",
     "tip-gauss",
+    # and with each clip's real frame count given to the NMF model
+    "ilrma-t",
 )
 
 
@@ -216,7 +225,7 @@ class Separator:
         if algo not in SERVABLE and not allow_unverified:
             raise ValueError(
                 f"algorithm {algo!r} is not verified padding-invariant "
-                f"(servable: {', '.join(SERVABLE)}); NMF-family updates "
+                f"(servable: {', '.join(SERVABLE)}); its NMF-family updates "
                 "change under zero-frame padding. Pass "
                 "allow_unverified=True to serve it anyway."
             )
@@ -397,7 +406,9 @@ class Separator:
         window, every padded frame zeroed by one ``torch.where``, the
         registry's runner (``run_batch`` on the group when ``batch``, else
         the runner on each clip: :meth:`separate`'s one clip, and each clip
-        of a group whose ``wcov`` tier the batch forms lack), synthesis
+        of a group whose ``wcov`` tier the batch forms lack; a runner that
+        takes ``frames`` gets each clip's real frame count, with which a
+        group's runner starts each clip as :meth:`separate` does), synthesis
         with the cached dual window, the int16 quantization. Nothing is
         read back to the host. The name is older than this path; the
         benchmark's ``half_batch`` fault patches the method by it."""
@@ -416,10 +427,16 @@ class Separator:
             keep = np.arange(X.shape[1]) >= np.asarray(t_pads)[:, None]
             keep = torch.from_numpy(keep).to(X.device, non_blocking=True)
             X = torch.where(keep[:, :, None, None], X, 0.0)
+        frames = [X.shape[1] - p for p in t_pads]
         if batch and not self._per_clip:
-            Y = self.spec.run_batch(X, n_src=self.n_src, **self._batch_kw)
+            kw = self._batch_kw
+            if self.spec.frames:  # each clip's frames, and with them its own start
+                kw = {**kw, "frames": frames}
+            Y = self.spec.run_batch(X, n_src=self.n_src, **kw)
         else:
-            ys = [self.spec(Xc, n_src=self.n_src, **self._kw) for Xc in X]
+            ys = [self.spec(Xc, n_src=self.n_src, **self._kw,
+                            **({"frames": n} if self.spec.frames else {}))
+                  for Xc, n in zip(X, frames)]
             # return_filters=True passes (Y, filters) through: keep Y
             ys = [y[0] if isinstance(y, tuple) else y for y in ys]
             Y = ys[0][None] if B == 1 else torch.stack(ys)  # one clip: a view

@@ -7,8 +7,9 @@ blocks and a Separator clip also without a host sync), and the parallel
 tier: gloo ranks sharing the card, one NCCL rank, ``Separator(mesh=...)``
 launch counts, the FastMNMF whitening start's card-vs-CPU spread, the
 Monte-Carlo sweep twin batched against serial, and the bench twin's rows;
-the ``tiss_batch`` cell's T-ISS group, the chunked batched ``eigh`` and
-the tiny T-ISS cell through the benchmark harness.
+the ``tiss_batch`` cell's T-ISS group and the ``ilrmat_batch`` cell's
+ILRMA-T group, the chunked batched ``eigh`` and the tiny T-ISS and
+ILRMA-T cells through the benchmark harness.
 
 Every test here needs a card and skips without one. This file imports no
 JAX, so it also runs where JAX is not installed:
@@ -379,6 +380,8 @@ def _gap(a, b, scale):
         # every compiled frame count: 4, 8, 16 and 32 lanes an output
         (16, 1, 9, 8, 6), (128, 3, 7, 6, 5), (256, 1, 9, 8, 40), (200, 2, 5, 4, 12),
         (128, 1, 9, 4, 7), (256, 1, 9, 2, 3), (256, 1, 9, 1, 9), (1, 1, 3, 8, 2),
+        # a weight a bin (f_mix = 1, ILRMA-T): the ilrmat_batch cell, ragged
+        (192, 8 * 513, 1, 3, 15), (100, 195, 1, 5, 10), (37, 33, 1, 8, 16),
     ],
 )
 def test_tap_steps_kernel_matches_plain(cuda, T, n_mix, F, M, MK):
@@ -486,7 +489,9 @@ def test_tiss_epochs_launch_tap_steps_once_an_epoch(cuda):
 def _iss_cases():
     """M in {2, 3, 8}, J in {M, M + 8 x 5}, n_mix in {1, 8} and T in {56,
     189, 192, 256}, the last three with zero tail frames (189 of 192 real:
-    the ``tiss_batch`` cell's bucket), rows of the widest J routed, and
+    the ``tiss_batch`` cell's bucket), rows of the widest J routed, a
+    weight a bin (ILRMA-T's phi (T, B*F, M)) at the ``ilrmat_batch`` cell's
+    shapes and two others, and
     T = 1 at M = 1 (at T = 1 and
     M >= 2 the data is rank 1, the first step fits every other output to
     rounding noise, and the plain steps themselves land 0.7-2.2 of max|W|
@@ -500,6 +505,8 @@ def _iss_cases():
     cases += [(1, 1, n_mix, 9, 1, J) for n_mix in (1, 8) for J in (1, 41)]
     # the widest rows a routed T-ISS epoch gives (tap_steps takes M x taps <= 128)
     cases += [(64, 60, 1, 9, M, M + 128) for M in (3, 8)]
+    # a weight a bin (f_mix = 1, ILRMA-T): the ilrmat_batch cell, ragged
+    cases += [(192, 189, 8 * 513, 1, 3, 18), (100, 97, 195, 1, 5, 15), (37, 37, 33, 1, 8, 24)]
     return cases
 
 
@@ -1160,6 +1167,84 @@ def test_separator_tiss_m8n2_taps5_group_on_card(cuda):
     np.testing.assert_array_equal(yb[0, start : start + 96_000].cpu().numpy(), ys[0])
 
 
+def test_separator_ilrmat_m3n3_taps5_group_on_card(cuda):
+    """The ``ilrmat_batch`` cell's configuration (``Separator("ilrma-t",
+    n_src=3, nfft=1024, hop=512, n_iter=30, n_components=2, taps=5,
+    delay=2)``, M=3, complex64): a group of 8 of its rooms folded into one
+    run on the card, each ILRMA-T epoch one ``iss_steps`` and one
+    ``tap_steps`` launch with a weight a bin, scores within 0.1 dB SDR and
+    SIR of the same group at complex128 on the CPU, each source within the
+    cell's ``rel_err`` limit of it; the clip path of a group syncs no host
+    and gives ``separate_batch``'s samples bit for bit."""
+    import json
+    from pathlib import Path
+
+    from benchmark.traffic.generate import make_mixture
+    from overiva_tpu_torch import serving
+    from overiva_tpu_torch.metrics import bss_eval_sources
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "benchmark/configs/ilrmat_m3n3_taps5.json").read_text())
+    limit = json.loads((root / "benchmark/limits/ilrmat_batch.json").read_text())["rel_err"]
+    args = {k: v for k, v in cfg["args"].items() if k != "algo"}
+    rng = np.random.default_rng(47)
+    rooms = [make_mixture(rng, cfg["n_chan"], 96_000, cfg["fs"], cfg["scene"])
+             for _ in range(8)]
+    mixes = [mix.astype(np.float32) for mix, _ in rooms]
+    sep = serving.Separator("ilrma-t", device=cuda, **args)
+    before = (tis.iss_steps.launches, tts.tap_steps.launches)
+    ys = sep.separate_batch(mixes)
+    assert (tis.iss_steps.launches - before[0], tts.tap_steps.launches - before[1]) == (30, 30)
+    assert sep.n_buckets() == 1
+    wants = serving.Separator("ilrma-t", device="cpu", dtype=np.complex128,
+                              **args).separate_batch(mixes)
+    for i, (y, want, (_, premix)) in enumerate(zip(ys, wants, rooms)):
+        assert np.isfinite(y).all() and y.shape == want.shape == (96_000, 3)
+        refs = premix[:, 0]
+        sdr, sir, _, _ = bss_eval_sources(refs, np.asarray(y, np.float64).T)
+        sdr_w, sir_w, _, _ = bss_eval_sources(refs, want.T)
+        assert np.abs(sdr - sdr_w).max() < 0.1 and np.abs(sir - sir_w).max() < 0.1, (
+            i, sdr, sdr_w, sir, sir_w)
+        rel = np.linalg.norm(y - want, axis=0) / np.linalg.norm(want, axis=0)
+        assert rel.max() <= limit, (i, rel)
+    idxs = list(range(8))
+    prepped = [sep._prep_clip(x.shape[0]) for x in mixes]
+    xb = sep._group_bucket(mixes, idxs, prepped, cfg["n_chan"], False)
+    t_pads = [p[2] for p in prepped]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yb = sep._separate_host(xb, t_pads)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    start = sep._start(prepped[0][2])
+    np.testing.assert_array_equal(yb[0, start : start + 96_000].cpu().numpy(), ys[0])
+
+
+def test_ilrmat_nmf_graph_on_card(cuda):
+    """ILRMA-T's NMF as its epochs run it on the card, a replay of its CUDA
+    graph, equals the plain ``_nmf_phi`` at the ``ilrmat_batch`` cell's
+    shapes, for two inputs and two sets of frame counts in turn, from one
+    capture."""
+    from overiva_tpu_torch.models import ilrma_t as tim
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    T, nb, F, M, K = 192, 8, 513, 3, 2
+    graphs = set()
+    for frames in ([189] * 8, [150, 189, 192, 100, 189, 120, 189, 64]):
+        Y = torch.randn(T, nb * F, M, dtype=torch.complex64, device=cuda, generator=g)
+        B = torch.rand(nb, M, F, K, device=cuda, generator=g) + 0.1
+        H = torch.rand(nb, M, K, T, device=cuda, generator=g) + 0.1
+        real = tim._real_frames(frames, T, Y)
+        graph = tim._nmf_graph(Y, B, H, real)
+        graphs.add(id(graph))
+        got = [t.clone() for t in graph(Y, B, H, real, None, None)]
+        want = tim._nmf_phi(Y, B, H, real, None, None)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+    assert len(graphs) == 1
+
+
 def test_eigh_chunked_on_card(cuda):
     """16 folded rooms of 2,049 bins: the batched eigh runs as two calls of
     16,392 (one call of 32,784 is refused by cuSOLVER), and agrees with 16
@@ -1198,6 +1283,28 @@ def test_tiny_tiss_cell_on_card(cuda, tmp_path):
         "source_hbm_frac.tiss"}
     for name in ("tap_share.tiss", "tap_hbm_frac.tiss", "source_share.tiss",
                  "source_hbm_frac.tiss"):
+        assert 0 < res["metrics"][name]["value"] <= 1, name
+
+
+def test_tiny_ilrmat_cell_on_card(cuda, tmp_path):
+    """The tiny ILRMA-T cell through the harness on the card, traced:
+    correct, and all seven of its per-layer metrics, the device trace's
+    too, each kernel's span holding its one launch."""
+    import time
+
+    from benchmark import run
+    from benchmark.tests import tiny, tiny_cells
+
+    cells = {**tiny.CELLS, **tiny_cells.MORE,
+             "tiny_ilrmat": ("ilrmat_batch", "tiny_ilrmat", "tiny_tiss_batch")}
+    root = tiny_cells.write_bench(tmp_path, cells=cells)
+    cell = run.load_cell("tiny_ilrmat", root, (tiny.DATA, run.HERE))
+    res = run.run_cell(cell, 2**31 + 11, 2.0, True, "cuda", time.perf_counter())
+    assert res["correct"] is True, res["compared"]
+    assert set(res["metrics"]) == {m["name"] for m in cell.per_layer} == {
+        "epoch_ms.ilrmat", "launches_per_epoch.ilrmat", "idle_frac.ilrmat", "nmf_ms.ilrmat",
+        "nmf_share.ilrmat", "source_hbm_frac.ilrmat", "tap_hbm_frac.ilrmat"}
+    for name in ("nmf_share.ilrmat", "source_hbm_frac.ilrmat", "tap_hbm_frac.ilrmat"):
         assert 0 < res["metrics"][name]["value"] <= 1, name
 
 

@@ -5,6 +5,10 @@
   computed them before the kernel (frozen below), bit for bit, at
   complex64 and complex128, for one mixture and for folded mixtures, with
   square rows (ISS) and augmented rows (T-ISS).
+- With a weight a bin (``n_mix`` = B*F: ILRMA-T's weights phi (T, B*F, M))
+  the plain version gives the source steps of ILRMA-T's epoch as it ran
+  them before it shared T-ISS's (frozen below: a leading mixture axis,
+  per-(t, f) weights).
 - The wrapper on the CPU is the reference.
 - The rule by which an epoch runs the kernel (``kernel_route``).
 - With the rule forced on the CPU and the launcher replaced by the plain
@@ -72,6 +76,46 @@ def test_reference_is_the_pre_change_steps(dtype, n_mix, taps):
     want = _pre_change_iss_steps(W, Y, phi, n_mix)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert torch.equal(W, W0) and torch.equal(Y, Y0)
+
+
+def _pre_share_ilrma_t_sources(P, Y, phi, T):
+    """The source steps of ``models/ilrma_t.py::_ilrma_t_epoch`` before they
+    became T-ISS's, verbatim: P (nb, F, M, MJ), Y (nb, T, F, M), phi (nb,
+    T, F, M)."""
+    M = Y.shape[-1]
+    col = torch.arange(M, device=Y.device)
+    for n in range(M):  # source steering, f-resolved weights
+        yn = Y[..., n]  # (nb, T, F)
+        num = torch.einsum("btfm,btf->bfm", phi * Y, yn.conj())
+        den = torch.einsum("btfm,btf->bfm", phi, yn.abs() ** 2)
+        v = num / torch.clamp_min(den, 1e-15)  # (nb, F, M)
+        dnn = den[..., n] / T
+        vnn = 1.0 - torch.rsqrt(torch.clamp_min(dnn, 1e-15))
+        v = torch.where(col == n, vnn[..., None].to(v.dtype), v)
+        Y = Y - v[:, None] * yn[..., None]
+        P = P - v[..., None] * P[:, :, n, None, :]
+    return P, Y
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("nb", [1, 2])
+def test_bin_weights_are_ilrma_t_source_steps(dtype, nb):
+    """Weights phi (T, B*F, M), one "mixture" a bin: the plain steps on the
+    folded layout equal ILRMA-T's own former loop on the leading-axis
+    layout (within rounding: the two contract over frames in other
+    orders; 1e-12 at complex128, 1e-5 at complex64)."""
+    T, F, M, J = 17, 6, 3, 9
+    W, Y, _ = _state(T, nb, F, M, J, dtype, seed=90 + nb)
+    rng = np.random.default_rng(95 + nb)
+    phi = torch.from_numpy(rng.random((T, nb * F, M)) + 0.1).to(Y.real.dtype)
+    got_W, got_Y = tis.iss_steps_reference(W, Y, phi, nb * F)
+    want_W, want_Y = _pre_share_ilrma_t_sources(
+        W.reshape(nb, F, M, J), Y.reshape(T, nb, F, M).transpose(0, 1),
+        phi.reshape(T, nb, F, M).transpose(0, 1), T)
+    tol = 1e-12 if dtype == torch.complex128 else 1e-5
+    for got, want in ((got_W.reshape(nb, F, M, J), want_W),
+                      (got_Y.reshape(T, nb, F, M).transpose(0, 1), want_Y)):
+        assert (got - want).abs().max() <= tol * want.abs().max()
 
 
 @pytest.mark.parametrize("n_mix", [1, 3])

@@ -339,11 +339,33 @@ def test_chip_smoke_bounds():
     assert 0.0376 < ms < 0.0377
 
 
+def test_chip_smoke_bin_weight_bounds():
+    """Phase 3f's floors at the ``ilrmat_batch`` cell (T=192, 8 rooms of 513
+    bins, M=3, 5 taps, a weight a bin): the benchmark's own, 15.2 us for
+    the source steps and 42.8 us for the tap steps, both set by bytes."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    from benchmark.roofline_sources import source_steps_bound
+    from benchmark.roofline_taps import tap_steps_bound
+
+    BF = 8 * 513
+    ms, by = chip_smoke.iss_steps_bound(192, BF, BF, 3, 18)
+    assert by == "bytes" and ms == 1e3 * source_steps_bound(192, BF, BF, 3, 18)[0]
+    assert 0.0151 < ms < 0.0152
+    ms, by = chip_smoke.tap_steps_bound(192, BF, BF, 3, 15)
+    assert by == "bytes" and ms == 1e3 * tap_steps_bound(192, BF, BF, 3, 15)[0]
+    assert 0.0427 < ms < 0.0428
+
+
 def test_chip_smoke_steps_launches():
     """The launches of (iss_steps, tap_steps) that ``chip_smoke.py`` asks of
     its ``separate`` calls and joint runs: one of each kernel an epoch that
-    runs it (ISS: iss_steps alone; T-IP: its 10 warm T-ISS epochs), none
-    past 256 frames, under complex128 or without T-ISS epochs."""
+    runs it (ISS: iss_steps alone; T-IP: its 10 warm T-ISS epochs; ILRMA-T:
+    every epoch, as its steps are T-ISS's), none past 256 frames, under
+    complex128 or without such epochs."""
     sys.path.insert(0, str(REPO))
     try:
         import chip_smoke
@@ -354,7 +376,7 @@ def test_chip_smoke_steps_launches():
         want = {algo: chip_smoke.separate_steps_want(algo, n, 30)
                 for algo in ("iss", "tiss", "tip", "ip", "ilrma_t")}
         assert want == {"iss": (30, 0), "tiss": (30, 30), "tip": (10, 10), "ip": (0, 0),
-                        "ilrma_t": (0, 0)}
+                        "ilrma_t": (30, 30)}
     assert chip_smoke.separate_steps_want("iss", chip_smoke.samples_for_frames(257), 30) == (0, 0)
     assert chip_smoke.steps_want(126, 5, 3, 15) == (15, 15)
     assert chip_smoke.steps_want(512, 8, 5, 30) == (0, 0)

@@ -2,13 +2,14 @@
 frame-bucket grid, against the JAX package on the CPU.
 
 Gates:
-- the grid (``bucket_frames``) and ``SERVABLE`` equal the JAX package's;
+- the grid (``bucket_frames``) equals the JAX package's, and ``SERVABLE``
+  is the JAX package's list plus ``ilrma-t``;
 - one case per family of the JAX package's fused branches, complex128,
   against the JAX ``Separator`` at rtol 1e-9, atol 1e-12 of the largest
   sample, with the same ``stats``;
   ``wcov="bf16pack"`` at complex64 against the JAX package's
   interpret-mode Pallas kernel (tolerance below);
-- padding invariance of all 17 SERVABLE names against the port's own
+- padding invariance of all 18 SERVABLE names against the port's own
   unpadded pipeline (the JAX package's gates, tests/test_serving.py:
   rtol 1e-6, atol 1e-8 of the largest sample), also at a quarter hop;
 - ``separate_batch`` equals per-clip for each of those cases, its groups
@@ -94,7 +95,9 @@ def test_bucket_frames_match_jax(grid):
 
 
 def test_tables_match_jax():
-    assert SERVABLE == jserving.SERVABLE
+    """The JAX package's names in its order, then ilrma-t, which the port
+    serves padding-exact (its runner takes each clip's real frames)."""
+    assert SERVABLE == jserving.SERVABLE + ("ilrma-t",)
 
 
 CASES = [

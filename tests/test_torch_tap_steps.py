@@ -4,6 +4,10 @@
 - ``tap_steps_reference`` is the steps as ``models/tiss.py::tap_steps``
   computed them before the kernel (frozen below), bit for bit, at
   complex64 and complex128, for one mixture and for folded mixtures.
+- With a weight a bin (``n_mix`` = B*F: ILRMA-T's weights phi (T, B*F, M))
+  the plain version gives the tap steps of ILRMA-T's epoch as it ran them
+  before it shared T-ISS's (frozen below: a leading mixture axis,
+  per-(t, f) weights).
 - The rule by which a T-ISS epoch runs the kernel (``kernel_route``).
 - ``tiss_iterations`` on the CPU: the plain steps, each ``tiss.taps``
   span saying ``kernel=0``; with the rule forced and the launcher replaced
@@ -71,6 +75,49 @@ def test_reference_is_the_pre_change_steps(dtype, n_mix):
     want = _pre_change_tap_steps(P, Y, Z, phi, n_mix)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert torch.equal(P, P0) and torch.equal(Y, Y0)
+
+
+def _pre_share_ilrma_t_taps(Xt, P, Y, phi, M):
+    """The tap steps of ``models/ilrma_t.py::_ilrma_t_epoch`` before they
+    became T-ISS's, verbatim: Xt (nb, T, F, MJ), P (nb, F, M, MJ), Y (nb,
+    T, F, M), phi (nb, T, F, M)."""
+    MK = Xt.shape[-1] - M
+    Z = Xt[..., M:]  # (nb, T, F, MK)
+    den_all = torch.einsum("btfm,btfj->bfmj", phi, Z.abs() ** 2)
+    vs = []
+    for j in range(MK):
+        zj = Z[..., j]
+        v = torch.einsum("btfm,btf->bfm", phi * Y, zj.conj()) / torch.clamp_min(
+            den_all[..., j], 1e-15)
+        Y = Y - v[:, None] * zj[..., None]
+        vs.append(v)
+    P = P.clone()
+    P[..., M:] -= torch.stack(vs, dim=-1)
+    return P, Y
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("nb", [1, 2])
+def test_bin_weights_are_ilrma_t_tap_steps(dtype, nb):
+    """Weights phi (T, B*F, M), one "mixture" a bin: the plain steps on the
+    folded layout equal ILRMA-T's own former loop on the leading-axis
+    layout (within rounding: the two contract over frames in other
+    orders; 1e-12 at complex128, 1e-5 at complex64)."""
+    T, F, M, taps = 17, 6, 3, 2
+    Xt, P, Y, _ = _state(T, nb, F, M, taps, dtype, seed=40 + nb)
+    MJ = Xt.shape[2]
+    rng = np.random.default_rng(45 + nb)
+    phi = torch.from_numpy(rng.random((T, nb * F, M)) + 0.1).to(Y.real.dtype)
+    got_P, got_Y = tts.tap_steps_reference(P, Y, Xt[:, :, M:], phi, nb * F)
+
+    def lead(a):  # (T, B*F, K) -> (B, T, F, K)
+        return a.reshape(T, nb, F, a.shape[2]).transpose(0, 1)
+
+    want_P, want_Y = _pre_share_ilrma_t_taps(lead(Xt), P.reshape(nb, F, M, MJ), lead(Y),
+                                             lead(phi), M)
+    tol = 1e-12 if dtype == torch.complex128 else 1e-5
+    for got, want in ((got_P.reshape(nb, F, M, MJ), want_P), (lead(got_Y), want_Y)):
+        assert (got - want).abs().max() <= tol * want.abs().max()
 
 
 @pytest.mark.parametrize("n_mix", [1, 3])

@@ -11,6 +11,8 @@ Gates:
   ``tiss.taps`` spans inside each (``steps``, ``bins``, ``frames``,
   ``outputs``; the sources' row ``width``), and its outputs bit for bit
   with tracing on and off;
+- ILRMA-T's start, its epochs and, inside each, the ``ilrma.nmf`` span
+  (``sources``, ``bases``, ``bins``, ``frames``) before T-ISS's two;
 - with tracing off nothing is recorded and no stage reaches a running
   profiler; the outputs are bit for bit the same with it on;
 - each exported span agrees with its ``torch.profiler`` annotation within
@@ -262,3 +264,35 @@ def test_tiss_outputs_identical_with_tracing(tiss_sep, clips, how):
         _, on = _call(tiss_sep, clips, how)
     for a, b in zip(off, on):
         assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("how", sorted(ROOTS))
+def test_ilrmat_spans(clips, how):
+    """ILRMA-T's start (T-ISS's), its epochs and, inside each, its NMF
+    updates and weights, then the source and tap steps with a weight a
+    bin, with their counts."""
+    sep = Separator("ilrma-t", n_iter=N_ITER, n_components=2, taps=TISS_TAPS, delay=1,
+                    device="cpu")
+    with profiling.tracing() as tr:
+        sent, _ = _call(sep, clips, how)
+    spans = tr.spans
+    assert [s["name"] for s in spans[1:]] == (
+        ["serve.upload", "serve.analysis", "family.start"]
+        + ["family.epoch", "ilrma.nmf", "tiss.sources", "tiss.taps"] * N_ITER
+        + ["api.proj_back", "serve.synthesis", "serve.download"])
+    B, F = len(sent), sep.nfft // 2 + 1
+    T = sep._prep_clip(sent[0].shape[0])[1]
+    assert spans[3]["counts"] == {"mats": 0}
+    epochs = [s for s in spans if s["name"] == "family.epoch"]
+    nmf = [s for s in spans if s["name"] == "ilrma.nmf"]
+    sources = [s for s in spans if s["name"] == "tiss.sources"]
+    assert [s["counts"] for s in epochs] == [{"index": i, "bins": B * F, "taps": M * TISS_TAPS}
+                                            for i in range(N_ITER)]
+    assert [s["counts"] for s in nmf] == [{"sources": M, "bases": 2, "bins": B * F,
+                                           "frames": T}] * N_ITER
+    assert [s["counts"] for s in sources] == [{"steps": M, "bins": B * F, "frames": T,
+                                               "outputs": M, "width": M * (1 + TISS_TAPS),
+                                               "kernel": 0}] * N_ITER
+    for e, n, s in zip(epochs, nmf, sources):
+        assert n["parent"] == s["parent"] == e["id"]
+        assert e["t0_ns"] <= n["t0_ns"] < n["t1_ns"] <= s["t0_ns"] <= e["t1_ns"]
